@@ -1,0 +1,115 @@
+"""Prepacked weights — the paper's "program subarrays once" step.
+
+On NAND-SPIN, weights are written into the subarrays exactly once at
+deployment; every inference afterwards only streams activations. The
+counterpart here is :class:`PackedWeight`: the weight's integer codes, its
+packed bit-planes (the subarray image), the Eq. 2 quantization parameters
+and the precomputed column sums of the affine correction.
+
+``prepack`` builds it for a (K, N) matmul weight; ``prepack_conv`` for a
+(KH, KW, C, O) convolution weight, which additionally carries the
+channel-packed per-kernel-row planes consumed by the fused implicit-im2col
+kernel (:mod:`repro_torch.kernels.conv2d_fused`). Planes are int32 bit
+patterns (see :mod:`.bitslice`).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import bitslice
+from .quantize import QuantParams, calibrate_minmax, dequantize, quantize
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedWeight:
+    """A (K, N) weight quantized and bit-plane-packed once.
+
+    codes     (K, N) int32          — Eq. 2 codes (the multi-bit matrix)
+    planes    (bits, N, KW) int32   — K-packed planes of ``codes.T``
+    col_sums  (N,) int32            — sum_k codes[k, n] (Sw of the algebra)
+    wq        QuantParams           — scale/qmin/bits of the weight
+    """
+
+    codes: torch.Tensor
+    planes: torch.Tensor
+    col_sums: torch.Tensor
+    wq: QuantParams
+
+    @property
+    def bits(self) -> int:
+        return self.wq.bits
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.codes.shape)
+
+    def to_float(self) -> torch.Tensor:
+        """Dequantized master weight."""
+        return dequantize(self.codes, self.wq)
+
+    def to(self, device) -> PackedWeight:
+        return PackedWeight(self.codes.to(device), self.planes.to(device),
+                            self.col_sums.to(device), self.wq.to(device))
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedConvWeight:
+    """A (KH, KW, C, O) conv weight prepacked for both conv lowering paths.
+
+    mat          PackedWeight over the (KH*KW*C, O) im2col matrix — drives
+                 the materialized path and the affine correction.
+    fused_planes (KH, bits, O, KW, CW) int32 — channel-packed planes per
+                 kernel row, the layout the fused implicit-im2col kernel
+                 reads one (kh) slab at a time.
+    """
+
+    mat: PackedWeight
+    fused_planes: torch.Tensor
+    kernel_shape: tuple = (1, 1, 1, 1)
+
+    @property
+    def bits(self) -> int:
+        return self.mat.bits
+
+    @property
+    def wq(self) -> QuantParams:
+        return self.mat.wq
+
+    def to_float(self) -> torch.Tensor:
+        return self.mat.to_float().reshape(self.kernel_shape)
+
+    def to(self, device) -> PackedConvWeight:
+        return PackedConvWeight(self.mat.to(device),
+                                self.fused_planes.to(device),
+                                self.kernel_shape)
+
+
+def prepack(w: torch.Tensor, w_bits: int) -> PackedWeight:
+    """Quantize + bit-slice + lane-pack a (K, N) weight once."""
+    wq = calibrate_minmax(w, w_bits)
+    codes = quantize(w, wq)
+    planes = bitslice.slice_and_pack(codes.T.contiguous(), w_bits)
+    return PackedWeight(codes=codes, planes=planes,
+                        col_sums=codes.sum(0).to(torch.int32), wq=wq)
+
+
+def prepack_conv(w: torch.Tensor, w_bits: int) -> PackedConvWeight:
+    """Prepack a (KH, KW, C, O) conv weight for both lowering paths."""
+    kh, kw, c, o = w.shape
+    wq = calibrate_minmax(w, w_bits)
+    codes = quantize(w, wq)                              # (KH, KW, C, O)
+    flat = codes.reshape(kh * kw * c, o)                 # im2col order
+    mat = PackedWeight(
+        codes=flat,
+        planes=bitslice.slice_and_pack(flat.T.contiguous(), w_bits),
+        col_sums=flat.sum(0).to(torch.int32),
+        wq=wq,
+    )
+    # Fused layout: per kernel row kh, O-major, channels packed into words.
+    wt = codes.permute(0, 3, 1, 2).contiguous()          # (KH, O, KW, C)
+    fused = bitslice.slice_and_pack(wt, w_bits)          # (bits, KH, O, KW, CW)
+    fused = fused.permute(1, 0, 2, 3, 4).contiguous()    # (KH, bits, O, KW, CW)
+    return PackedConvWeight(mat=mat, fused_planes=fused,
+                            kernel_shape=(kh, kw, c, o))

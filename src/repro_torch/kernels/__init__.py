@@ -1,0 +1,12 @@
+"""Hand-written CUDA kernels for the paper's Eq. 1 hot spot (sm_90a).
+
+  csrc/*.cu            the kernels, each a plain-C shared library
+  _build.py            nvcc build at first use + ctypes loading
+  bitplane_pack.py     bit-plane slice + lane pack (+ plain version)
+  bitserial_matmul.py  fused pack + AND/popcount matmul (+ plain version)
+  conv2d_fused.py      implicit-im2col bit-serial conv (+ plain version)
+  ops.py               public wrappers and launch counters
+
+The submodules are imported by name (``from repro_torch.kernels import
+ops``); nothing is re-exported, so no function shadows a module.
+"""

@@ -1,0 +1,70 @@
+"""Public wrappers for the bit-serial kernels.
+
+Dispatch is by tensor device only: a CUDA tensor launches the hand-written
+CUDA kernel (or raises), a CPU tensor runs the kernel's plain PyTorch
+version in the same module. Nothing falls back from one to the other.
+
+``bitserial_matmul`` is one launch: the weight planes arrive prepacked
+(``pw=``, from :class:`repro_torch.core.packed.PackedWeight`), and the
+activation codes are sliced and packed inside the matmul kernel.
+``conv2d_bitserial`` is two: the channel pack of the padded activation
+codes, then the fused implicit-im2col conv.
+
+K is zero-padded to a whole word, and C to whole channel words, inside the
+kernels (lanes past the edge read the zero code), which is the zero padding
+the JAX wrappers apply with ``jnp.pad``, without the copy.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import bitplane_pack as _pack
+from . import bitserial_matmul as _bsm
+from . import conv2d_fused as _conv
+
+_KERNEL_MODULES = {"bitplane_pack": _pack, "bitserial_matmul_fused": _bsm,
+                   "conv2d_bitserial_fused": _conv}
+
+
+def launch_counts() -> dict:
+    """Kernel launches since the last :func:`reset_launch_counts`."""
+    return {name: mod.launches for name, mod in _KERNEL_MODULES.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in _KERNEL_MODULES.values():
+        mod.launches = 0
+
+
+def pack_planes(q: torch.Tensor, bits: int) -> torch.Tensor:
+    """Integer codes (M, K) -> packed planes (bits, M, ceil(K/32))."""
+    return _pack.bitplane_pack(q, bits)
+
+
+def bitserial_matmul(qa: torch.Tensor, *, a_bits: int, w_bits: int,
+                     pw: torch.Tensor) -> torch.Tensor:
+    """Eq. 1 bit-serial integer matmul -> (M, N) int32.
+
+    ``qa`` (M, K) activation codes; ``pw`` (w_bits, N, ceil(K/32))
+    prepacked weight planes (``PackedWeight.planes``).
+    """
+    return _bsm.bitserial_matmul_fused(qa, pw, a_bits, w_bits)
+
+
+def conv2d_bitserial(qx: torch.Tensor, pw: torch.Tensor, *, a_bits: int,
+                     stride: int = 1) -> torch.Tensor:
+    """Implicit-im2col bit-serial conv -> P (N, OH, OW, O) int32.
+
+    ``qx`` (N, Hp, Wp, C) int32 activation codes, already spatially padded
+    with the zero code; ``pw`` (KH, w_bits, O, KW, CW) fused planes.
+    """
+    n, hp, wp, c = qx.shape
+    kh, _, _, kw_sz, cw = pw.shape
+    oh = (hp - kh) // stride + 1
+    ow = (wp - kw_sz) // stride + 1
+    pa = pack_planes(qx.reshape(n * hp * wp, c), a_bits)
+    if pa.shape[-1] != cw:
+        raise ValueError(f"channel words {pa.shape[-1]} != weight words {cw}")
+    pa = pa.reshape(a_bits, n * hp, wp, cw)
+    return _conv.conv2d_bitserial_fused(pa, pw, n=n, hp=hp, oh=oh, ow=ow,
+                                        stride=stride)

@@ -1,0 +1,56 @@
+"""ResNet-50 (paper benchmark #3 and its breakdown model, Fig. 16)."""
+from __future__ import annotations
+
+import torch
+
+from . import layers as L
+
+# (blocks, mid_channels) per stage; out = 4 * mid. Read at call time.
+_STAGES = [(3, 64), (4, 128), (6, 256), (3, 512)]
+
+
+def init(gen: torch.Generator, num_classes=1000, image=224):
+    """Random float parameters from ``gen`` (on the CPU)."""
+    params = {"stem": L.init_conv(gen, 7, 3, 64)}
+    cin = 64
+    for s, (blocks, mid) in enumerate(_STAGES):
+        cout = mid * 4
+        for b in range(blocks):
+            blk = {
+                "c1": L.init_conv(gen, 1, cin, mid),
+                "c2": L.init_conv(gen, 3, mid, mid),
+                "c3": L.init_conv(gen, 1, mid, cout),
+            }
+            if b == 0:
+                blk["proj"] = L.init_conv(gen, 1, cin, cout)
+            params[f"s{s}b{b}"] = blk
+            cin = cout
+    params["head"] = L.init_fc(gen, cin, num_classes)
+    return params
+
+
+def prepack(params, cfg):
+    """Deployment: quantize+pack every weight once (program subarrays once)."""
+    return L.prepack_params(params, cfg)
+
+
+def _bottleneck(p, x, stride, cfg):
+    y = L.conv_block(p["c1"], x, 1, 0, cfg=cfg)
+    y = L.conv_block(p["c2"], y, stride, 1, cfg=cfg)
+    y = L.conv_block(p["c3"], y, 1, 0, cfg=cfg, relu=False)
+    if "proj" in p:
+        x = L.conv_block(p["proj"], x, stride, 0, cfg=cfg, relu=False)
+    return torch.relu(x + y)
+
+
+def apply(params, x, cfg=None):
+    """NHWC images (N, H, W, 3) -> logits (N, num_classes)."""
+    x = L.conv_block(params["stem"], x, stride=2, padding=3, cfg=cfg)
+    # The reference's stem pool is VALID (no padding), unlike torchvision's.
+    x = L.max_pool(x, 3, 2)
+    for s, (blocks, _mid) in enumerate(_STAGES):
+        for b in range(blocks):
+            x = _bottleneck(params[f"s{s}b{b}"], x,
+                            2 if (b == 0 and s > 0) else 1, cfg)
+    x = L.avg_pool_global(x)
+    return L.fc_block(params["head"], x, cfg=cfg, relu=False)

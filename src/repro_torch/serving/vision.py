@@ -1,0 +1,217 @@
+"""Batched CNN serving engine: micro-batched vision inference on one GPU.
+
+  * **Queue + power-of-two micro-batching.** Requests carry (image, model,
+    precision ``<W:I>``). The engine groups the queue head's (model,
+    precision, image-shape) cohort and dispatches the largest power-of-two
+    bucket that fits (5 queued -> 4 + 1), so a varied load sees at most
+    ``log2(max_batch) + 1`` batch shapes per (model, precision).
+  * **Prepack exactly once per (model, precision).** The first request of
+    a pair moves the float tree to the device, quantizes and packs every
+    conv/fc weight (the paper's program-subarrays-once step) and caches the
+    result; every later bucket of that pair reuses it. ``precision=None``
+    serves the float forward from the same device-resident masters.
+
+Numerics: a bucket's logits equal ``model.apply`` on the same stacked batch
+with the same ``PIMQuantConfig`` — activation calibration is per batch in
+both, so results depend on bucket composition, as in the JAX package.
+
+The engine runs on ``device`` ("cuda" unless the caller asks otherwise):
+on a CUDA device every bit-serial product goes through the hand-written
+kernels; ``device="cpu"`` runs their plain PyTorch versions.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import re
+import warnings
+
+import numpy as np
+import torch
+
+from repro_torch import disable_tf32
+from repro_torch.core import PIMQuantConfig
+from repro_torch.models.cnn import layers as L
+from repro_torch.models.cnn import resnet
+
+# The port's CNN zoo, keyed by serving name.
+MODEL_ZOO = {"resnet50": resnet}
+
+_PRECISION = re.compile(r"^<(\d+):(\d+)>$")
+
+
+def parse_precision(precision: str | None) -> tuple[int, int] | None:
+    """``"<W:I>"`` -> (w_bits, a_bits); None/"float" -> None (fp path)."""
+    if precision is None or precision in ("float", "fp32"):
+        return None
+    m = _PRECISION.match(precision)
+    if not m:
+        raise ValueError(
+            f"precision {precision!r}: want '<W:I>' (e.g. '<8:8>') or None")
+    return int(m.group(1)), int(m.group(2))
+
+
+@dataclasses.dataclass(eq=False)   # identity equality: ndarray fields make
+class VisionRequest:               # field-wise __eq__ ambiguous
+    rid: int
+    image: np.ndarray               # (H, W, C) float
+    model: str = "resnet50"
+    precision: str | None = "<8:8>"  # "<W:I>" | None (float forward)
+
+
+@dataclasses.dataclass
+class VisionCompletion:
+    rid: int
+    logits: np.ndarray              # (num_classes,)
+    top1: int
+    batch: int                      # bucket size this request rode in
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on; CUDA must be there if asked for."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' explicitly to run the plain PyTorch versions "
+            "of the kernels")
+    return device
+
+
+class VisionEngine:
+    """Micro-batched CNN inference over a model registry.
+
+    ``models`` maps a model name to its float param tree (names resolve
+    against the zoo: resnet50) or to an explicit ``(module, params)`` pair
+    for custom CNNs exposing ``apply(params, x, cfg=...)``.
+
+    ``backend`` picks the Eq. 1 execution strategy for every quantized
+    request ("cuda", the only one ported); requests pick their own
+    precision. ``max_batch`` is the largest micro-batch bucket (rounded
+    down to a power of two).
+    """
+
+    def __init__(self, models: dict, backend: str = "cuda",
+                 max_batch: int = 8, device="cuda"):
+        if backend != "cuda":
+            raise ValueError(f"backend {backend!r}: the port has 'cuda' only")
+        self.device = resolve_device(device)
+        disable_tf32()
+        self._models = {}
+        for name, entry in models.items():
+            if isinstance(entry, tuple):
+                module, params = entry
+            else:
+                if name not in MODEL_ZOO:
+                    raise ValueError(
+                        f"unknown model {name!r} (zoo: {sorted(MODEL_ZOO)}); "
+                        "pass (module, params) for custom CNNs")
+                module, params = MODEL_ZOO[name], entry
+            self._models[name] = (module, params)
+        self.backend = backend
+        self.max_batch = 1 << (max(1, max_batch).bit_length() - 1)
+        self.queue: collections.deque = collections.deque()
+        self._masters: dict = {}    # model -> float tree on the device
+        self._packed: dict = {}     # (model, precision) -> param tree
+        self.prepacks = 0           # (model, precision) trees built
+
+    def _cfg(self, precision: str | None) -> PIMQuantConfig | None:
+        bits = parse_precision(precision)
+        if bits is None:
+            return None
+        return PIMQuantConfig(w_bits=bits[0], a_bits=bits[1],
+                              backend=self.backend)
+
+    def _packed_params(self, model: str, precision: str | None):
+        """Move to the device and quantize+pack exactly once per pair."""
+        mkey = (model, precision)
+        tree = self._packed.get(mkey)
+        if tree is None:
+            masters = self._masters.get(model)
+            if masters is None:
+                masters = L.tree_to(self._models[model][1], self.device)
+                self._masters[model] = masters
+            cfg = self._cfg(precision)
+            tree = L.prepack_params(masters, cfg) if cfg is not None \
+                else masters
+            self._packed[mkey] = tree
+            self.prepacks += 1
+        return tree
+
+    # -- public API ----------------------------------------------------------
+
+    def submit(self, req: VisionRequest):
+        if req.model not in self._models:
+            raise ValueError(f"unknown model {req.model!r} "
+                             f"(registered: {sorted(self._models)})")
+        # Validate at admission and canonicalize the float spellings so
+        # "float"/"fp32"/None requests share one cohort.
+        if parse_precision(req.precision) is None:
+            req.precision = None
+        self.queue.append(req)
+
+    def _group_key(self, req: VisionRequest):
+        return (req.model, req.precision, np.asarray(req.image).shape)
+
+    def step(self) -> list:
+        """Dispatch one micro-batch bucket; returns its completions.
+
+        The queue head picks the (model, precision, shape) cohort; the
+        bucket is the largest power of two <= min(cohort, max_batch).
+        """
+        if not self.queue:
+            return []
+        key = self._group_key(self.queue[0])
+        m = 0
+        for r in self.queue:
+            if self._group_key(r) == key:
+                m += 1
+                if m == self.max_batch:
+                    break
+        bucket = 1 << (m.bit_length() - 1)
+        group, kept = [], []
+        for r in self.queue:
+            if len(group) < bucket and self._group_key(r) == key:
+                group.append(r)
+            else:
+                kept.append(r)
+        self.queue = collections.deque(kept)
+        model, precision, _ = key
+        return self._dispatch(group, model, precision)
+
+    def _dispatch(self, group, model: str, precision: str | None) -> list:
+        bucket = len(group)
+        batch = torch.from_numpy(
+            np.stack([np.asarray(r.image, np.float32) for r in group])
+        ).to(self.device)
+        params = self._packed_params(model, precision)
+        module, _ = self._models[model]
+        with torch.inference_mode():
+            logits = module.apply(params, batch, cfg=self._cfg(precision))
+        logits = logits.cpu().numpy()
+        return [
+            VisionCompletion(rid=r.rid, logits=logits[i],
+                             top1=int(logits[i].argmax()), batch=bucket)
+            for i, r in enumerate(group)
+        ]
+
+    def run(self, max_steps: int = 10_000, strict: bool = False) -> list:
+        """Drain the queue; returns all completions.
+
+        If the step budget runs out with requests still queued, raise
+        (``strict=True``) or emit a ``RuntimeWarning`` naming the stranded
+        rids.
+        """
+        out = []
+        for _ in range(max_steps):
+            if not self.queue:
+                return out
+            out.extend(self.step())
+        if self.queue:
+            rids = [r.rid for r in self.queue]
+            msg = (f"VisionEngine.run: {len(rids)} request(s) still queued "
+                   f"after {max_steps} steps (rids {rids[:8]})")
+            if strict:
+                raise RuntimeError(msg)
+            warnings.warn(msg, RuntimeWarning)
+        return out
