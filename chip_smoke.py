@@ -9,28 +9,37 @@ JAX package ``repro``, and fails (non-zero exit, no result line) on any
 failed phase, without a GPU, or outside a checkout.
 
 1. Prints the card's name and power limit; turns TF32 off.
-2. Builds the three CUDA kernels from ``src/repro_torch/kernels/csrc``.
-3. Holds each kernel against its plain PyTorch version on the card with
-   ``torch.equal`` at the shapes ResNet-50 gives it at 224 px in a bucket
-   of 8, plus ragged shapes at <2:2>, <4:4> and <8:8>; prints one JSON line
-   per shape with the kernel's time, the plain version's, a PyTorch library
-   call's where one computes the same P exactly, and the least time the
-   card could take for the same P (``bound_ms``), beside the least time of
-   the kernel's own algorithm at the card's popcount rate
-   (``popc_bound_ms``).
+2. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc``.
+3. Holds each of the four kernels against its plain PyTorch version on the
+   card with ``torch.equal`` at the shapes ResNet-50, AlexNet and VGG19
+   give it at 224 px in a bucket of 8, plus ragged shapes at <2:2>, <4:4>
+   and <8:8>; prints one JSON line per shape with the kernel's time, the
+   plain version's, a PyTorch library call's where one computes the same P
+   exactly, and the least time the card could take for the same P
+   (``bound_ms``), beside the least time of the kernel's own algorithm at
+   the card's popcount rate (``popc_bound_ms``). Then holds the four Eq. 1
+   backends' P equal to each other at AlexNet conv1's im2col shape.
 4. Serves 12 requests (buckets 8 + 4) through ``VisionEngine`` with
    ResNet-50 (random weights from a seed, 1000 classes, 224 px, <8:8>,
    backend "cuda") twice, a warm run and a timed run, and checks that every
-   kernel launched during the timed run and that the logits are finite.
-   Then times five buckets of 8 and profiles one, for the device's idle
-   share of a bucket.
-5. Serves 2 images at 32 px on the card and on the CPU (plain versions)
-   with the same weights: equal top-1, logits within rtol 1e-3 and
-   atol 1e-3*max|cpu| (the integer P is exact on both; the global average
-   pool and the float epilogues reduce in another order on the GPU).
+   kernel of the path launched during the timed run and that the logits are
+   finite. Then times five buckets of 8 and profiles one, for the device's
+   idle share of a bucket, and serves the float path.
+5. Serves AlexNet on the "cuda" and on the "popcount" backend and VGG19 on
+   "cuda" the same way (224 px, full width and depth, <8:8>, buckets of 8
+   timed and profiled), each path's launch counts set to 0 just before its
+   timed run and read just after.
+6. Serves 2 images at a small size on the card and on the CPU (plain
+   versions) with the same weights, for each served model and backend:
+   equal top-1, logits within rtol 1e-3 and atol 1e-3*max|cpu| (the
+   integer P is exact on both; the global average pool and the float
+   epilogues reduce in another order on the GPU).
 
-The last three lines are the card's name and power limit, the per-kernel
-summary ``{"kernels": [...]}``, and ``{"ok": true, "device": {...}}``.
+Each phase prints its wall seconds on a line of its own. The last three
+lines are the card's name and power limit, the per-kernel summary
+``{"kernels": [...]}`` (launches counted on the ResNet-50 path for kernels
+1-3 and on the AlexNet popcount path for kernel 4), and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -63,10 +72,28 @@ KERNEL_INFO = {
     "bitserial_matmul_fused": dict(
         source="src/repro_torch/kernels/csrc/bitserial_matmul.cu",
         replaces="src/repro/kernels/bitserial_matmul.py:159"),
+    "bitserial_matmul_packed": dict(
+        source="src/repro_torch/kernels/csrc/bitserial_matmul.cu",
+        replaces="src/repro/kernels/bitserial_matmul.py:120"),
     "conv2d_bitserial_fused": dict(
         source="src/repro_torch/kernels/csrc/conv2d_fused.cu",
         replaces="src/repro/kernels/conv2d_fused.py:73"),
 }
+
+
+class phase:
+    """Prints a phase's wall seconds on a line of its own when it ends."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            print(f"phase {self.name}: {time.perf_counter() - self.t0:.1f} s",
+                  flush=True)
 
 
 def nvidia_smi(query: str) -> str:
@@ -167,6 +194,28 @@ class KernelChecks:
             nbytes=4 * m * k + 4 * wb * n * kw + 4 * m * n, macs=m * n * k,
             popcs=m * n * kw * ab * wb, timing=timing)
 
+    def packed(self, m, k, n, wb, ab, timing=True):
+        torch = self.torch
+        from repro_torch.core.packed import prepack
+        from repro_torch.kernels import bitserial_matmul as km
+        from repro_torch.kernels import ops
+
+        qa = self._codes((m, k), ab)
+        w = torch.randn((k, n), generator=self.gen, device="cuda")
+        pw = prepack(w, wb)
+        pa = ops.pack_planes(qa, ab)
+        kw = pa.shape[-1]
+        a64, w64 = qa.double(), pw.codes.double()
+        self._record(
+            "bitserial_matmul_packed", dict(M=m, K=k, N=n), f"<{wb}:{ab}>",
+            km.bitserial_matmul_packed(pa, pw.planes, ab, wb),
+            km.packed_matmul_plain(pa, pw.planes),
+            lambda: km.bitserial_matmul_packed(pa, pw.planes, ab, wb),
+            lambda: km.packed_matmul_plain(pa, pw.planes),
+            lambda: torch.matmul(a64, w64),
+            nbytes=4 * ab * m * kw + 4 * wb * n * kw + 4 * m * n,
+            macs=m * n * k, popcs=m * n * kw * ab * wb, timing=timing)
+
     def conv(self, n, h, c, o, ks, stride, pad, wb, ab, timing=True):
         torch = self.torch
         import torch.nn.functional as F
@@ -200,7 +249,7 @@ class KernelChecks:
             popcs=n * oh * oh * o * ks * ks * cw * ab * wb, timing=timing)
 
 
-def profile_bucket(torch, eng, imgs, request_cls) -> dict:
+def profile_bucket(torch, eng, imgs, request_cls, model) -> dict:
     """Device time by kernel over one served bucket (torch.profiler), the
     bucket's wall time under the profiler and the device's idle share of
     it, and the host-to-device copies and stream synchronisations that
@@ -208,7 +257,7 @@ def profile_bucket(torch, eng, imgs, request_cls) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     for rid in range(len(imgs)):
-        eng.submit(request_cls(rid=rid, image=imgs[rid], model="resnet50"))
+        eng.submit(request_cls(rid=rid, image=imgs[rid], model=model))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -224,7 +273,7 @@ def profile_bucket(torch, eng, imgs, request_cls) -> dict:
     device_ms = sum(ms for ms, _ in dev.values())
     ours = {k: v for k, v in dev.items()
             if any(s in k for s in ("bitplane_pack_kernel",
-                                    "bitserial_matmul_fused_kernel",
+                                    "bitserial_matmul_kernel",
                                     "conv2d_fused_kernel"))}
     top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:12]
     return dict(wall_ms=wall_ms, device_ms=device_ms,
@@ -252,6 +301,118 @@ def summary(rows, name, launches, headline):
                 popc_bound_ms=row["popc_bound_ms"], shape=headline)
 
 
+# Kernels each served path must launch (the rest may stay at 0).
+PATH_KERNELS = {
+    "cuda": ("bitplane_pack", "bitserial_matmul_fused",
+             "conv2d_bitserial_fused"),
+    "popcount": ("bitplane_pack", "bitserial_matmul_packed"),
+}
+
+
+def serve_path(torch, np, ops, eng, model, backend, imgs, request_cls):
+    """One served path: a warm run (prepack, first launches), a timed run of
+    every image with the launch counts set to 0 just before it and read just
+    after, then five buckets of 8 timed without the profiler (whose
+    host-side tracing slows dispatch; the last one's launches are the
+    launches per bucket) and one profiled bucket, for the device's idle
+    share. Fails if a kernel of the path never launched, on wrong buckets
+    or on non-finite or misshapen logits."""
+
+    def serve(n):
+        for rid in range(n):
+            eng.submit(request_cls(rid=rid, image=imgs[rid], model=model))
+        t = time.perf_counter()
+        done = eng.run(strict=True)
+        torch.cuda.synchronize()
+        return sorted(done, key=lambda c: c.rid), time.perf_counter() - t
+
+    serve(len(imgs))
+    ops.reset_launch_counts()
+    done, dt = serve(len(imgs))
+    launches = ops.launch_counts()
+    buckets = sorted({c.batch for c in done})
+    if buckets != [4, 8] or len(done) != 12:
+        raise AssertionError(f"{model}/{backend}: buckets {buckets} for "
+                             f"{len(done)} completions")
+    if not all(np.isfinite(c.logits).all() and c.logits.shape == (1000,)
+               for c in done):
+        raise AssertionError(f"{model}/{backend}: non-finite or misshapen "
+                             "logits")
+    missing = [k for k in PATH_KERNELS[backend] if not launches[k]]
+    if missing:
+        raise AssertionError(f"{model}/{backend}: {missing} never launched on "
+                             f"the main path: {launches}")
+    walls = []
+    for _ in range(5):
+        ops.reset_launch_counts()
+        walls.append(serve(8)[1] * 1e3)
+    print(json.dumps(dict(
+        serving=model, backend=backend, image=imgs.shape[1],
+        precision="<8:8>", requests=12, buckets=[8, 4], seconds=dt,
+        img_per_s=12 / dt, launches=launches,
+        launches_per_bucket_of_8=ops.launch_counts(),
+        bucket_of_8_wall_ms=walls)), flush=True)
+    prof = profile_bucket(torch, eng, imgs[:8], request_cls, model)
+    prof["idle_share_unprofiled"] = 1 - prof["device_ms"] / float(
+        np.median(walls))
+    print(json.dumps(dict(profile_bucket_of_8=prof, serving=model,
+                          backend=backend)), flush=True)
+    return done, launches
+
+
+def gpu_vs_cpu(torch, np, module, model, backend, image):
+    """2 images at ``image`` px through the engine on the card and on the
+    CPU (plain versions), the same weights: equal top-1, logits within rtol
+    1e-3 and atol 1e-3*max|cpu|."""
+    from repro_torch.serving import VisionEngine, VisionRequest
+
+    params = module.init(torch.Generator().manual_seed(0), num_classes=1000,
+                         image=image)
+    small = np.random.default_rng(1).standard_normal(
+        (2, image, image, 3)).astype(np.float32)
+    out = {}
+    for device in ("cuda", "cpu"):
+        e = VisionEngine({model: params}, backend=backend, max_batch=2,
+                         device=device)
+        for rid in range(2):
+            e.submit(VisionRequest(rid=rid, image=small[rid], model=model,
+                                   precision="<8:8>"))
+        out[device] = sorted(e.run(strict=True), key=lambda c: c.rid)
+    gpu = np.stack([c.logits for c in out["cuda"]])
+    cpu = np.stack([c.logits for c in out["cpu"]])
+    err = float(np.abs(gpu - cpu).max())
+    scale = float(np.abs(cpu).max())
+    top1 = ([c.top1 for c in out["cuda"]], [c.top1 for c in out["cpu"]])
+    if top1[0] != top1[1] or not np.allclose(gpu, cpu, rtol=1e-3,
+                                             atol=1e-3 * scale):
+        raise AssertionError(f"{model}/{backend} GPU vs CPU at {image} px: "
+                             f"max |diff| {err} (max|cpu| {scale}), top1 "
+                             f"{top1[0]} vs {top1[1]}")
+    print(json.dumps(dict(gpu_vs_cpu=model, backend=backend, image=image,
+                          max_abs_diff=err, max_abs_cpu=scale)), flush=True)
+
+
+def backends_agree(torch, m, k, n, bits):
+    """P of the four Eq. 1 backends on the card, equal bit for bit."""
+    from repro_torch.core import bitserial
+    from repro_torch.core.packed import prepack
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    qa = torch.randint(0, 2**bits, (m, k), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    pk = prepack(torch.randn((k, n), generator=gen, device="cuda"), bits)
+    ps = {b: bitserial.int_matmul_prepacked(qa, pk, bits, b)
+          for b in bitserial.BACKENDS}
+    torch.cuda.synchronize()
+    want = ps["int-direct"]
+    bad = [b for b, p in ps.items() if not torch.equal(p, want)]
+    if bad:
+        raise AssertionError(f"backends {bad} differ from int-direct at "
+                             f"M={m}, K={k}, N={n}, <{bits}:{bits}>")
+    print(json.dumps(dict(backends_equal=sorted(ps), M=m, K=k, N=n,
+                          bits=f"<{bits}:{bits}>")), flush=True)
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: run it from the root of a checkout "
@@ -269,7 +430,7 @@ def main() -> int:
     print(card, flush=True)
     from repro_torch import disable_tf32
     from repro_torch.kernels import _build, ops
-    from repro_torch.models.cnn import resnet
+    from repro_torch.models.cnn import alexnet, resnet, vgg
     from repro_torch.serving import VisionEngine, VisionRequest
 
     disable_tf32()
@@ -278,15 +439,17 @@ def main() -> int:
             raise AssertionError(f"the port imported {mod}")
 
     # -- 2. build ------------------------------------------------------------
-    t0 = time.perf_counter()
-    build_s = _build.build()
-    print(f"built {sorted(build_s)} in {time.perf_counter() - t0:.1f}s "
-          f"(per nvcc: { {k: round(v, 1) for k, v in build_s.items()} })",
-          flush=True)
-    for name in _build.KERNELS:
-        log = _build.BUILD_DIR / f"{name}.log"
-        if log.exists():
-            print(f"--- nvcc {name} ---\n{log.read_text().strip()}", flush=True)
+    with phase("build"):
+        t0 = time.perf_counter()
+        build_s = _build.build()
+        print(f"built {sorted(build_s)} in {time.perf_counter() - t0:.1f}s "
+              f"(per nvcc: { {k: round(v, 1) for k, v in build_s.items()} })",
+              flush=True)
+        for name in _build.KERNELS:
+            log = _build.BUILD_DIR / f"{name}.log"
+            if log.exists():
+                print(f"--- nvcc {name} ---\n{log.read_text().strip()}",
+                      flush=True)
 
     # -- 3. kernels against their plain versions -----------------------------
     props = torch.cuda.get_device_properties(0)
@@ -298,100 +461,89 @@ def main() -> int:
           f"SMs at {clock_mhz:.0f} MHz -> {popc_per_s:.4g} popc/s",
           flush=True)
     kc = KernelChecks(torch, popc_per_s)
-    # Slice shapes at 224 px, bucket of 8, <8:8>.
-    kc.pack(8 * 230 * 230, 3, 8)          # stem input, C=3 -> one word
-    kc.pack(8 * 58 * 58, 64, 8)           # s0 3x3 input
-    kc.pack(8 * 58 * 58, 128, 8)          # s1b0.c2 input
-    kc.conv(8, 224, 3, 64, 7, 2, 3, 8, 8)     # stem 7x7/2
-    kc.conv(8, 56, 64, 64, 3, 1, 1, 8, 8)     # s0 3x3
-    kc.conv(8, 56, 128, 128, 3, 2, 1, 8, 8)   # s1b0.c2 3x3/2
-    kc.matmul(8 * 56 * 56, 256, 64, 8, 8)     # s0 1x1 (c1 of s0b1)
-    kc.matmul(8, 2048, 1000, 8, 8)            # head
-    # Ragged cases at each paper precision.
-    for bits in (2, 4, 8):
-        kc.pack(37, 70, bits, timing=False)
-        kc.matmul(37, 70, 131, bits, bits, timing=False)
-        kc.conv(2, 9, 5, 131, 3, 2, 1, bits, bits, timing=False)
+    with phase("kernels"):
+        # ResNet-50 shapes at 224 px, bucket of 8, <8:8>.
+        kc.pack(8 * 230 * 230, 3, 8)          # stem input, C=3 -> one word
+        kc.pack(8 * 58 * 58, 64, 8)           # s0 3x3 input
+        kc.pack(8 * 58 * 58, 128, 8)          # s1b0.c2 input
+        kc.conv(8, 224, 3, 64, 7, 2, 3, 8, 8)     # stem 7x7/2
+        kc.conv(8, 56, 64, 64, 3, 1, 1, 8, 8)     # s0 3x3
+        kc.conv(8, 56, 128, 128, 3, 2, 1, 8, 8)   # s1b0.c2 3x3/2
+        kc.matmul(8 * 56 * 56, 256, 64, 8, 8)     # s0 1x1 (c1 of s0b1)
+        kc.matmul(8, 2048, 1000, 8, 8)            # head
+        # AlexNet: its convs on "cuda", its im2col GEMMs on "popcount".
+        kc.conv(8, 224, 3, 96, 11, 4, 2, 8, 8)    # conv1 11x11/4
+        kc.conv(8, 27, 96, 256, 5, 1, 2, 8, 8)    # conv2 5x5
+        kc.packed(8 * 55 * 55, 363, 96, 8, 8)     # conv1 im2col
+        kc.packed(8 * 27 * 27, 2400, 256, 8, 8)   # conv2 im2col
+        kc.packed(8 * 13 * 13, 2304, 384, 8, 8)   # conv3 im2col
+        kc.packed(8 * 13 * 13, 3456, 384, 8, 8)   # conv4 im2col
+        kc.packed(8 * 13 * 13, 3456, 256, 8, 8)   # conv5 im2col
+        kc.packed(8, 9216, 4096, 8, 8)            # fc1
+        kc.packed(8, 4096, 4096, 8, 8)            # fc2
+        kc.packed(8, 4096, 1000, 8, 8)            # head
+        kc.packed(8, 64, 192, 4, 4)               # the Pallas bn % 128 != 0
+        kc.packed(8, 64, 320, 4, 4)               # regression shapes
+        # VGG19 on "cuda": its first conv, a C=O=512 conv at 28 and at 14
+        # px, and fc1.
+        kc.conv(8, 224, 3, 64, 3, 1, 1, 8, 8)     # conv1_1
+        kc.conv(8, 28, 512, 512, 3, 1, 1, 8, 8)   # conv4_2
+        kc.conv(8, 14, 512, 512, 3, 1, 1, 8, 8)   # conv5_1
+        kc.matmul(8, 25088, 4096, 8, 8)           # fc1
+        # Ragged cases at each paper precision.
+        for bits in (2, 4, 8):
+            kc.pack(37, 70, bits, timing=False)
+            kc.matmul(37, 70, 131, bits, bits, timing=False)
+            kc.packed(37, 70, 131, bits, bits, timing=False)
+            kc.packed(8, 4000, 1000, bits, bits, timing=bits == 8)
+            kc.conv(2, 9, 5, 131, 3, 2, 1, bits, bits, timing=False)
+        backends_agree(torch, 8 * 55 * 55, 363, 96, 8)   # AlexNet conv1
 
-    # -- 4. serving ResNet-50 -------------------------------------------------
-    params = resnet.init(torch.Generator().manual_seed(0), num_classes=1000,
-                         image=224)
-    eng = VisionEngine({"resnet50": params}, backend="cuda", max_batch=8)
     imgs = np.random.default_rng(0).standard_normal(
         (12, 224, 224, 3)).astype(np.float32)
 
-    def serve(precision):
-        for rid in range(len(imgs)):
-            eng.submit(VisionRequest(rid=rid, image=imgs[rid],
-                                     model="resnet50", precision=precision))
-        t = time.perf_counter()
-        done = eng.run(strict=True)
-        torch.cuda.synchronize()
-        return sorted(done, key=lambda c: c.rid), time.perf_counter() - t
+    # -- 4. serving ResNet-50 -------------------------------------------------
+    with phase("serve resnet50 cuda"):
+        params = resnet.init(torch.Generator().manual_seed(0),
+                             num_classes=1000, image=224)
+        eng = VisionEngine({"resnet50": params}, backend="cuda", max_batch=8)
+        done, launches = serve_path(torch, np, ops, eng, "resnet50", "cuda",
+                                    imgs, VisionRequest)
+    with phase("serve resnet50 float"):
+        fdone = None
+        for _ in range(2):                          # warm, then timed
+            for rid in range(len(imgs)):
+                eng.submit(VisionRequest(rid=rid, image=imgs[rid],
+                                         model="resnet50", precision=None))
+            t = time.perf_counter()
+            fdone = sorted(eng.run(strict=True), key=lambda c: c.rid)
+            torch.cuda.synchronize()
+            fdt = time.perf_counter() - t
+        agree = float(np.mean([a.top1 == b.top1 for a, b in zip(done, fdone)]))
+        print(json.dumps(dict(float_path_img_per_s=12 / fdt,
+                              top1_agreement_with_float=agree)), flush=True)
+    del eng, params
 
-    serve("<8:8>")                                      # warm: prepack, build
-    ops.reset_launch_counts()
-    done, dt = serve("<8:8>")
-    launches = ops.launch_counts()
-    buckets = sorted({c.batch for c in done})
-    if buckets != [4, 8] or len(done) != 12:
-        raise AssertionError(f"buckets {buckets} for {len(done)} completions")
-    if not all(np.isfinite(c.logits).all() and c.logits.shape == (1000,)
-               for c in done):
-        raise AssertionError("non-finite or misshapen logits")
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel never launched on the main path: "
-                             f"{launches}")
-    print(json.dumps(dict(serving="resnet50", image=224, precision="<8:8>",
-                          requests=12, buckets=[8, 4], seconds=dt,
-                          img_per_s=12 / dt, launches=launches, card=card)),
-          flush=True)
-    # Buckets of 8 without the profiler, whose host-side tracing slows
-    # dispatch: their wall time is what the idle share is read against.
-    walls = []
-    for _ in range(5):
-        ops.reset_launch_counts()
-        for rid in range(8):
-            eng.submit(VisionRequest(rid=rid, image=imgs[rid],
-                                     model="resnet50"))
-        t = time.perf_counter()
-        eng.run(strict=True)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t) * 1e3)
-    print(json.dumps(dict(launches_per_bucket_of_8=ops.launch_counts(),
-                          bucket_of_8_wall_ms=walls)), flush=True)
-    prof = profile_bucket(torch, eng, imgs[:8], VisionRequest)
-    prof["idle_share_unprofiled"] = 1 - prof["device_ms"] / float(
-        np.median(walls))
-    print(json.dumps(dict(profile_bucket_of_8=prof)), flush=True)
-    fdone, fdt = serve(None)                            # warm float path
-    fdone, fdt = serve(None)
-    agree = float(np.mean([a.top1 == b.top1 for a, b in zip(done, fdone)]))
-    print(json.dumps(dict(float_path_img_per_s=12 / fdt,
-                          top1_agreement_with_float=agree)), flush=True)
+    # -- 5. serving AlexNet and VGG19 -----------------------------------------
+    paths = {}
+    for model, module, backend in (("alexnet", alexnet, "cuda"),
+                                   ("alexnet", alexnet, "popcount"),
+                                   ("vgg19", vgg, "cuda")):
+        with phase(f"serve {model} {backend}"):
+            params = module.init(torch.Generator().manual_seed(0),
+                                 num_classes=1000, image=224)
+            eng = VisionEngine({model: params}, backend=backend, max_batch=8)
+            _, paths[(model, backend)] = serve_path(
+                torch, np, ops, eng, model, backend, imgs, VisionRequest)
+            del eng, params
+            torch.cuda.empty_cache()
 
-    # -- 5. end to end against the CPU's plain versions ----------------------
-    small = np.random.default_rng(1).standard_normal(
-        (2, 32, 32, 3)).astype(np.float32)
-    out = {}
-    for device in ("cuda", "cpu"):
-        e = VisionEngine({"resnet50": params}, backend="cuda", max_batch=2,
-                         device=device)
-        for rid in range(2):
-            e.submit(VisionRequest(rid=rid, image=small[rid],
-                                   model="resnet50", precision="<8:8>"))
-        out[device] = sorted(e.run(strict=True), key=lambda c: c.rid)
-    gpu = np.stack([c.logits for c in out["cuda"]])
-    cpu = np.stack([c.logits for c in out["cpu"]])
-    err = float(np.abs(gpu - cpu).max())
-    scale = float(np.abs(cpu).max())
-    if [c.top1 for c in out["cuda"]] != [c.top1 for c in out["cpu"]] or \
-            not np.allclose(gpu, cpu, rtol=1e-3, atol=1e-3 * scale):
-        raise AssertionError(f"GPU vs CPU: max |diff| {err} (max|cpu| "
-                             f"{scale}), top1 {[c.top1 for c in out['cuda']]} "
-                             f"vs {[c.top1 for c in out['cpu']]}")
-    print(json.dumps(dict(gpu_vs_cpu_max_abs_diff=err, max_abs_cpu=scale)),
-          flush=True)
+    # -- 6. end to end against the CPU's plain versions ----------------------
+    for module, model, backend, image in (
+            (resnet, "resnet50", "cuda", 32), (alexnet, "alexnet", "cuda", 64),
+            (alexnet, "alexnet", "popcount", 64), (vgg, "vgg19", "cuda", 32)):
+        with phase(f"gpu vs cpu {model} {backend}"):
+            gpu_vs_cpu(torch, np, module, model, backend, image)
 
     kernels = [
         summary(kc.rows, "bitplane_pack", launches["bitplane_pack"],
@@ -399,6 +551,9 @@ def main() -> int:
         summary(kc.rows, "bitserial_matmul_fused",
                 launches["bitserial_matmul_fused"],
                 dict(M=8 * 56 * 56, K=256, N=64)),
+        summary(kc.rows, "bitserial_matmul_packed",
+                paths[("alexnet", "popcount")]["bitserial_matmul_packed"],
+                dict(M=8 * 27 * 27, K=2400, N=256)),
         summary(kc.rows, "conv2d_bitserial_fused",
                 launches["conv2d_bitserial_fused"],
                 dict(N=8, H=56, C=64, O=64, k=3, stride=1, pad=1)),

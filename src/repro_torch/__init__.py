@@ -6,7 +6,10 @@ it (and no JAX) and keeps the reference's module names and layouts:
   core/        Eq. 2 quantization, bit-plane packing, prepacked weights,
                the Eq. 1 product and the pim_linear / pim_conv2d layers
   kernels/     hand-written CUDA kernels for sm_90a (H100) + plain versions
-  models/cnn/  ResNet-50 (functional init / prepack / apply)
+  models/cnn/  AlexNet, VGG19, ResNet-50 (functional init / prepack /
+               apply) and their layer specs
+  configs/     the paper's CNN benchmark configurations
+  pim/         the NAND-SPIN architecture simulator (host arithmetic)
   serving/     VisionEngine: queued, power-of-two micro-batched inference
   launch/      ``python -m repro_torch.launch.serve --workload cnn``
   convert.py   carry a JAX parameter tree (as numpy) across

@@ -2,11 +2,26 @@
 
     I * W = sum_n sum_m 2^(n+m) * bitcount(AND(c_n(I), c_m(W)))
 
-The port has one execution backend, ``"cuda"``, the counterpart of the JAX
-package's ``"pallas"``: the hand-written kernels of
-:mod:`repro_torch.kernels` on a CUDA tensor, their plain PyTorch versions
-on a CPU tensor. Accumulation is int32 and wraps mod 2^32, as in the
-reference.
+Four interchangeable execution backends, all bit-exact w.r.t. each other:
+
+``popcount``   the paper-faithful dataflow on packed planes: the activation
+               codes are packed (kernel ``bitplane_pack``), then ANDed and
+               popcounted against the stored weight planes (kernel
+               ``bitserial_matmul_packed``) with the 2^(n+m) shifts.
+``mxu-plane``  each (n, m) plane pair as a {0,1} matrix product: one
+               float32 product of all activation planes against all weight
+               planes, whose counts are exact integers while K < 2^24; the
+               counts are combined with integer shifts.
+``int-direct`` one library product of the multi-bit codes, what Eq. 1
+               decomposes.
+``cuda``       the counterpart of the JAX package's ``pallas``: one launch
+               of ``bitserial_matmul_fused``, which packs the activation
+               codes inside the matmul.
+
+The kernels run on a CUDA tensor; on a CPU tensor their plain PyTorch
+versions run. Accumulation wraps mod 2^32 in every backend, as the
+reference's int32 accumulation does, so the backends agree bit for bit
+wherever the reference's do.
 
 Weights may arrive as a :class:`repro_torch.core.packed.PackedWeight` — the
 deployment path where codes, planes and column sums were computed once at
@@ -16,36 +31,136 @@ from __future__ import annotations
 
 import torch
 
+from . import bitslice
 from .packed import PackedWeight, prepack
-from .quantize import affine_correction, calibrate_minmax, quantize
+from .quantize import QuantParams, affine_correction, calibrate_minmax, quantize
 
-BACKENDS = ("cuda",)
+BACKENDS = ("popcount", "mxu-plane", "int-direct", "cuda")
+
+
+def _kernels():
+    from repro_torch.kernels import ops   # lazy: the kernels import core
+
+    return ops
+
+
+def _wrap_int32(p: torch.Tensor) -> torch.Tensor:
+    """int64 values -> int32 with the same low 32 bits (mod 2^32)."""
+    return bitslice.to_int32_bits(p & 0xFFFFFFFF)
+
+
+# ---------------------------------------------------------------------------
+# Integer core: P = qa @ qw  (qa: (M, K) codes, qw: (K, N) codes)
+# ---------------------------------------------------------------------------
+
+def int_matmul_popcount_packed(pa: torch.Tensor, pw: torch.Tensor,
+                               a_bits: int, w_bits: int) -> torch.Tensor:
+    """Eq. 1 on prepacked planes. pa (a_bits, M, KW), pw (w_bits, N, KW)."""
+    return _kernels().bitserial_matmul_packed(pa, pw, a_bits=a_bits,
+                                              w_bits=w_bits)
+
+
+def int_matmul_popcount(qa: torch.Tensor, qw: torch.Tensor, a_bits: int,
+                        w_bits: int) -> torch.Tensor:
+    """Eq. 1 with packed planes + popcount. qa (M, K), qw (K, N) -> (M, N)."""
+    return int_matmul(qa, qw, a_bits, w_bits, backend="popcount")
+
+
+def int_matmul_mxu_plane(qa: torch.Tensor, qw: torch.Tensor, a_bits: int,
+                         w_bits: int) -> torch.Tensor:
+    """Eq. 1 with every plane pair contracted as a {0,1} matrix product.
+
+    One float32 product (a_bits*M, K) @ (K, w_bits*N): each count is a sum
+    of at most K ones, exact in float32 while K < 2^24 (float32 products
+    keep their type, unlike a bf16 product, whose counts above 256 would
+    round). The counts become integers and are combined with shifts, not
+    float plane weights, so the result is exact.
+    """
+    m, k = qa.shape
+    n = qw.shape[1]
+    if k >= 2**24:
+        raise ValueError(f"K={k}: float32 plane counts are exact below 2^24")
+    pa = bitslice.bitplanes(qa, a_bits).to(torch.float32).reshape(
+        a_bits * m, k)
+    pw = bitslice.bitplanes(qw, w_bits).to(torch.float32)     # (w, K, N)
+    pw = pw.permute(1, 0, 2).reshape(k, w_bits * n)
+    cnt = (pa @ pw).to(torch.int64).reshape(a_bits, m, w_bits, n)
+    shifts = (torch.arange(a_bits, device=qa.device)[:, None, None, None]
+              + torch.arange(w_bits, device=qa.device)[None, None, :, None])
+    return _wrap_int32((cnt << shifts).sum((0, 2)))
+
+
+def int_matmul_direct(qa: torch.Tensor, qw: torch.Tensor, a_bits: int = 0,
+                      w_bits: int = 0) -> torch.Tensor:
+    """One product of the codes (what Eq. 1 decomposes), wrapped mod 2^32.
+
+    CUDA has no int32 matmul, so the product runs in float64: exact while
+    every partial sum is below 2^53, i.e. (2^b - 1)^2 * K < 2^53 for codes
+    of b bits (K < 1.3e11 at 8 bits, K < 2.1e6 at 16).
+    """
+    p = qa.to(torch.float64) @ qw.to(torch.float64)
+    return _wrap_int32(p.to(torch.int64))
+
+
+def _pack_codes(qw: torch.Tensor, wq: QuantParams) -> PackedWeight:
+    """Weight codes (K, N) as a PackedWeight (planes of ``qw.T``)."""
+    return PackedWeight(
+        codes=qw, planes=bitslice.slice_and_pack(qw.T.contiguous(), wq.bits),
+        col_sums=qw.sum(0).to(torch.int32), wq=wq)
+
+
+def int_matmul(qa, qw, a_bits, w_bits, backend="popcount"):
+    unit = QuantParams(torch.ones((), device=qw.device),
+                       torch.zeros((), device=qw.device), w_bits)
+    return int_matmul_prepacked(qa, _pack_codes(qw, unit), a_bits, backend)
 
 
 def int_matmul_prepacked(qa: torch.Tensor, w: PackedWeight, a_bits: int,
                          backend: str = "cuda") -> torch.Tensor:
-    """P = qa @ w.codes from the prepacked weight planes -> (M, N) int32."""
-    if backend != "cuda":
-        raise ValueError(f"unknown backend {backend!r} (ported: {BACKENDS})")
-    from repro_torch.kernels import ops as _kops
+    """P = qa @ w.codes using whatever representation the backend wants.
 
-    return _kops.bitserial_matmul(qa, a_bits=a_bits, w_bits=w.bits,
-                                  pw=w.planes)
+    The popcount and cuda backends consume the prepacked planes directly:
+    the weight side of quantize -> slice -> pack never runs again.
+    """
+    w_bits = w.bits
+    if backend == "int-direct":
+        return int_matmul_direct(qa, w.codes)
+    if backend == "mxu-plane":
+        return int_matmul_mxu_plane(qa, w.codes, a_bits, w_bits)
+    ops = _kernels()
+    if backend == "popcount":
+        pa = ops.pack_planes(qa, a_bits)
+        return int_matmul_popcount_packed(pa, w.planes, a_bits, w_bits)
+    if backend == "cuda":
+        return ops.bitserial_matmul(qa, a_bits=a_bits, w_bits=w_bits,
+                                    pw=w.planes)
+    raise ValueError(f"unknown backend {backend!r} (ported: {BACKENDS})")
 
+
+# ---------------------------------------------------------------------------
+# Float-facing quantized matmul (Eq. 2 calibration + Eq. 1 core + correction)
+# ---------------------------------------------------------------------------
 
 def quantized_matmul(a: torch.Tensor, w, a_bits: int = 8, w_bits: int = 8,
-                     backend: str = "cuda") -> torch.Tensor:
+                     backend: str = "cuda", wq: QuantParams | None = None,
+                     qw: torch.Tensor | None = None) -> torch.Tensor:
     """Full paper pipeline: calibrate -> quantize -> bit-serial P -> dequant.
 
-    ``a`` (..., K) float; ``w`` a (K, N) float weight (quantized per call)
-    or a :class:`PackedWeight`.
+    ``a`` (..., K) float; ``w`` a :class:`PackedWeight` (the deployment
+    mode), or a (K, N) float weight quantized per call, or, with the legacy
+    pre-quantized ``wq``/``qw``, taken from those codes.
     """
     lead = a.shape[:-1]
     k = a.shape[-1]
     a2 = a.reshape(-1, k)
     aq = calibrate_minmax(a2, a_bits)
     qa = quantize(a2, aq)
-    packed = w if isinstance(w, PackedWeight) else prepack(w, w_bits)
+    if isinstance(w, PackedWeight):
+        packed = w
+    elif qw is not None:
+        packed = _pack_codes(qw, wq)
+    else:
+        packed = prepack(w, w_bits)
     p = int_matmul_prepacked(qa, packed, a_bits, backend)
     sa = qa.sum(-1, keepdim=True)
     y = affine_correction(p, sa, packed.col_sums, k, aq, packed.wq)

@@ -3,7 +3,8 @@
 ``pim_linear``/``pim_conv2d`` run a dense projection or an NHWC convolution
 either in float (``cfg`` None or disabled) or through the paper's
 bit-serial pipeline: Eq. 2 calibration and quantization of the activation,
-the Eq. 1 integer product on the ``"cuda"`` backend, and the affine
+the Eq. 1 integer product on the configured backend ("popcount" |
+"mxu-plane" | "int-direct" | "cuda", see :mod:`.bitserial`), and the affine
 correction back to floats.
 
 Weights may be float master arrays (quantized per call) or prepacked
@@ -13,7 +14,8 @@ Weights may be float master arrays (quantized per call) or prepacked
 Conv2D lowers to the integer product two ways: a materialized im2col patch
 matrix (cheap for 1x1 kernels and small maps), or the fused
 implicit-im2col kernel that never builds the (N*OH*OW, KH*KW*C) matrix.
-:func:`fuse_conv_heuristic` picks one, or ``conv_mode`` forces it.
+:func:`fuse_conv_heuristic` picks one (the fused kernel only for the
+``"cuda"`` backend), or ``conv_mode`` forces it.
 
 Layouts are the JAX package's: NHWC activations, HWIO conv weights. Float
 convolutions and the border correction's mask conv must not run in TF32
@@ -26,7 +28,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from .bitserial import int_matmul_prepacked, quantized_matmul
+from .bitserial import BACKENDS, int_matmul_prepacked, quantized_matmul
 from .packed import PackedConvWeight, PackedWeight, prepack, prepack_conv
 from .quantize import affine_correction, calibrate_minmax, quantize
 
@@ -35,8 +37,17 @@ from .quantize import affine_correction, calibrate_minmax, quantize
 class PIMQuantConfig:
     w_bits: int = 8
     a_bits: int = 8
-    backend: str = "cuda"   # the only ported backend (JAX's "pallas")
+    backend: str = "cuda"   # the kernels (JAX's "pallas"); see BACKENDS
     enabled: bool = True
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r} "
+                             f"(ported: {BACKENDS})")
+
+    @property
+    def tag(self) -> str:
+        return f"<{self.w_bits}:{self.a_bits}>"
 
 
 def prepack_linear(w: torch.Tensor, cfg: PIMQuantConfig) -> PackedWeight:
@@ -143,8 +154,6 @@ def pim_conv2d(x: torch.Tensor, w, b: torch.Tensor | None = None,
     fused = {"fused": True, "im2col": False}.get(
         conv_mode, fuse_conv_heuristic(n, oh, ow, kh, kw, c, cfg.backend))
     if fused:
-        if cfg.backend != "cuda":
-            raise ValueError(f"unknown backend {cfg.backend!r}")
         from repro_torch.kernels import ops as _kops
 
         p = _kops.conv2d_bitserial(qx, w.fused_planes, a_bits=cfg.a_bits,

@@ -3,7 +3,8 @@
   csrc/*.cu            the kernels, each a plain-C shared library
   _build.py            nvcc build at first use + ctypes loading
   bitplane_pack.py     bit-plane slice + lane pack (+ plain version)
-  bitserial_matmul.py  fused pack + AND/popcount matmul (+ plain version)
+  bitserial_matmul.py  AND/popcount matmul from codes (fused pack) or from
+                       packed planes (+ plain versions)
   conv2d_fused.py      implicit-im2col bit-serial conv (+ plain version)
   ops.py               public wrappers and launch counters
 

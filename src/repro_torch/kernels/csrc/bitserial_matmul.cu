@@ -1,33 +1,43 @@
-// Fused bit-serial matmul (paper Eq. 1) from activation codes and
-// prepacked weight planes:
+// Bit-serial matmul (paper Eq. 1) against prepacked weight planes:
 //   P[m, n] = sum_{x, y} 2^(x+y) * popcount(a_x[m, :] & w_y[n, :])
 //
-// Replaces: src/repro/kernels/bitserial_matmul.py::bitserial_matmul_fused
-// (Pallas; body _fused_kernel + _accumulate). qa (M, K) int32 codes,
-// pw (w_bits, N, ceil(K/32)) 32-bit words -> P (M, N) int32.
+// Two entry points share one tile loop and differ only in where the
+// activation planes come from:
+//
+//   repro_bitserial_matmul_fused   qa (M, K) int32 codes, sliced and packed
+//     inside the kernel. Replaces src/repro/kernels/bitserial_matmul.py::
+//     bitserial_matmul_fused (Pallas; body _fused_kernel + _accumulate).
+//   repro_bitserial_matmul_packed  pa (a_bits, M, KW) 32-bit words, packed
+//     beforehand (the popcount backend packs with bitplane_pack.cu).
+//     Replaces src/repro/kernels/bitserial_matmul.py::
+//     bitserial_matmul_packed (Pallas; body _kernel + _accumulate).
+//
+// Both take pw (w_bits, N, KW) 32-bit words and return P (M, N) int32.
 //
 // Bound on the H100. The product itself is M*N*K multiply-adds of codes of
 // at most 8 bits, which the int8 tensor cores run at 1,979 TOP/s (H100 SXM
 // data sheet); its least time is the larger of that and the bytes moved
-// (codes in, planes in, P out, at 3.35 TB/s), and at the shapes that
-// chip_smoke.py times the bytes are the larger. This kernel does the product on the
-// CUDA cores instead, as M*N*ceil(K/32)*a_bits*w_bits AND+POPC pairs, and
-// __popc issues at 16 per clock per SM (CUDA C++ Programming Guide,
-// arithmetic instruction throughput, compute capability 9.0): that issue
-// rate, not the bytes, is what holds this design back, and the tensor
-// cores' b1 AND+POPC mma is the route past it.
+// (codes or planes in, weight planes in, P out, at 3.35 TB/s), and at the
+// shapes that chip_smoke.py times the bytes are the larger. This kernel
+// does the product on the CUDA cores instead, as M*N*KW*a_bits*w_bits
+// AND+POPC pairs, and __popc issues at 16 per clock per SM (CUDA C++
+// Programming Guide, arithmetic instruction throughput, compute capability
+// 9.0): that issue rate, not the bytes, is what holds this design back, and
+// the tensor cores' b1 AND+POPC mma is the route past it.
 //
 // Design: one block per 64x64 output tile, 256 threads, each thread 4x4
 // outputs in registers. K runs innermost in steps of 8 words: the block
-// packs its 64 rows of activation codes into a_bits planes in shared memory
-// with one warp ballot per plane and word (the packed planes never reach
-// device memory, as in the Pallas kernel), stages the w_bits weight planes
-// beside them, and every thread ANDs and popcounts its rows against its
-// columns. The sum is kept in uint32 so overflow wraps mod 2^32 like the
-// reference's int32 (signed overflow would be undefined), and its bits are
-// stored as int32. Ragged M, N and K edges are masked in place: rows and
-// columns past the edge read zero codes and zero words, and only real
-// outputs are stored, so no size needs to divide a tile.
+// stages its 64 rows of activation planes in shared memory (the fused entry
+// packs them from the codes with one warp ballot per plane and word, so its
+// packed planes never reach device memory, as in the Pallas kernel; the
+// packed entry copies the words), stages the w_bits weight planes beside
+// them, and every thread ANDs and popcounts its rows against its columns.
+// The sum is kept in uint32 so overflow wraps mod 2^32 like the reference's
+// int32 (signed overflow would be undefined), and its bits are stored as
+// int32. Ragged M, N and K edges are masked in place: rows and columns past
+// the edge read zero codes and zero words, and only real outputs are
+// stored, so no size needs to divide a tile (the Pallas kernel needed
+// divisor tiles, and its bn % 128 != 0 path once dropped columns).
 #include "common.cuh"
 
 namespace {
@@ -36,11 +46,13 @@ constexpr int kBM = 64, kBN = 64, kWords = 8;
 constexpr int kTM = 4, kTN = 4;
 constexpr int kThreads = 256;  // (kBM / kTM) * (kBN / kTN)
 
+// kFromCodes: ``a`` is (M, K) int32 codes; otherwise (a_bits, M, KW) words.
+template <bool kFromCodes>
 __global__ void __launch_bounds__(kThreads)
-bitserial_matmul_fused_kernel(const int* __restrict__ qa,
-                              const uint32_t* __restrict__ pw,
-                              uint32_t* __restrict__ out, int m, int n, int k,
-                              int kw, int a_bits, int w_bits) {
+bitserial_matmul_kernel(const void* __restrict__ a,
+                        const uint32_t* __restrict__ pw,
+                        uint32_t* __restrict__ out, int m, int n, int k,
+                        int kw, int a_bits, int w_bits) {
   __shared__ uint32_t a_s[kMaxBits][kWords][kBM];
   __shared__ uint32_t w_s[kMaxBits][kWords][kBN + 1];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -51,17 +63,30 @@ bitserial_matmul_fused_kernel(const int* __restrict__ qa,
 
   for (int kw0 = 0; kw0 < kw; kw0 += kWords) {
     const int nw = min(kWords, kw - kw0);
-    // Slice and pack this K step of the block's activation rows.
-    for (int t = warp; t < kBM * nw; t += kThreads / 32) {
-      const int r = t / nw, w = t % nw;
-      const int64_t row = row0 + r;
-      const int col = (kw0 + w) * 32 + lane;
-      const int code = (row < m && col < k) ? qa[row * k + col] : 0;
+    if constexpr (kFromCodes) {
+      // Slice and pack this K step of the block's activation rows.
+      const int* qa = static_cast<const int*>(a);
+      for (int t = warp; t < kBM * nw; t += kThreads / 32) {
+        const int r = t / nw, w = t % nw;
+        const int64_t row = row0 + r;
+        const int col = (kw0 + w) * 32 + lane;
+        const int code = (row < m && col < k) ? qa[row * k + col] : 0;
 #pragma unroll
-      for (int b = 0; b < kMaxBits; ++b) {
-        if (b < a_bits) {
-          const uint32_t word = plane_word(code, b);
-          if (lane == 0) a_s[b][w][r] = word;
+        for (int b = 0; b < kMaxBits; ++b) {
+          if (b < a_bits) {
+            const uint32_t word = plane_word(code, b);
+            if (lane == 0) a_s[b][w][r] = word;
+          }
+        }
+      }
+    } else {
+      // Copy this K step of the block's packed activation planes.
+      const uint32_t* pa = static_cast<const uint32_t*>(a);
+      for (int b = 0; b < a_bits; ++b) {
+        for (int t = tid; t < kBM * nw; t += kThreads) {
+          const int r = t / nw, w = t % nw;
+          const int64_t row = row0 + r;
+          a_s[b][w][r] = row < m ? pa[(int64_t(b) * m + row) * kw + kw0 + w] : 0u;
         }
       }
     }
@@ -75,12 +100,12 @@ bitserial_matmul_fused_kernel(const int* __restrict__ qa,
     }
     __syncthreads();
     for (int w = 0; w < nw; ++w) {
-      uint32_t a[kMaxBits][kTM], wv[kMaxBits][kTN];
+      uint32_t av[kMaxBits][kTM], wv[kMaxBits][kTN];
 #pragma unroll
       for (int b = 0; b < kMaxBits; ++b) {
         if (b < a_bits) {
 #pragma unroll
-          for (int i = 0; i < kTM; ++i) a[b][i] = a_s[b][w][ty + i * (kBM / kTM)];
+          for (int i = 0; i < kTM; ++i) av[b][i] = a_s[b][w][ty + i * (kBM / kTM)];
         }
         if (b < w_bits) {
 #pragma unroll
@@ -97,7 +122,7 @@ bitserial_matmul_fused_kernel(const int* __restrict__ qa,
               for (int i = 0; i < kTM; ++i) {
 #pragma unroll
                 for (int j = 0; j < kTN; ++j) {
-                  acc[i][j] += uint32_t(__popc(a[x][i] & wv[y][j])) << (x + y);
+                  acc[i][j] += uint32_t(__popc(av[x][i] & wv[y][j])) << (x + y);
                 }
               }
             }
@@ -118,16 +143,29 @@ bitserial_matmul_fused_kernel(const int* __restrict__ qa,
   }
 }
 
+template <bool kFromCodes>
+int launch(const void* a, const void* pw, void* out, int m, int n, int k,
+           int kw, int a_bits, int w_bits, void* stream) {
+  const dim3 grid((m + kBM - 1) / kBM, (n + kBN - 1) / kBN);
+  bitserial_matmul_kernel<kFromCodes><<<grid, kThreads, 0,
+                                        static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<const uint32_t*>(pw), static_cast<uint32_t*>(out), m, n,
+      k, kw, a_bits, w_bits);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 REPRO_EXPORT int repro_bitserial_matmul_fused(const void* qa, const void* pw,
                                               void* out, int m, int n, int k,
                                               int kw, int a_bits, int w_bits,
                                               void* stream) {
-  const dim3 grid((m + kBM - 1) / kBM, (n + kBN - 1) / kBN);
-  bitserial_matmul_fused_kernel<<<grid, kThreads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(qa), static_cast<const uint32_t*>(pw),
-      static_cast<uint32_t*>(out), m, n, k, kw, a_bits, w_bits);
-  return int(cudaGetLastError());
+  return launch<true>(qa, pw, out, m, n, k, kw, a_bits, w_bits, stream);
+}
+
+REPRO_EXPORT int repro_bitserial_matmul_packed(const void* pa, const void* pw,
+                                               void* out, int m, int n, int kw,
+                                               int a_bits, int w_bits,
+                                               void* stream) {
+  return launch<false>(pa, pw, out, m, n, kw * 32, kw, a_bits, w_bits, stream);
 }

@@ -7,6 +7,8 @@ version in the same module. Nothing falls back from one to the other.
 ``bitserial_matmul`` is one launch: the weight planes arrive prepacked
 (``pw=``, from :class:`repro_torch.core.packed.PackedWeight`), and the
 activation codes are sliced and packed inside the matmul kernel.
+``bitserial_matmul_packed`` takes activation planes packed beforehand
+(``pack_planes``), the ``popcount`` backend's two launches.
 ``conv2d_bitserial`` is two: the channel pack of the padded activation
 codes, then the fused implicit-im2col conv.
 
@@ -22,18 +24,24 @@ from . import bitplane_pack as _pack
 from . import bitserial_matmul as _bsm
 from . import conv2d_fused as _conv
 
-_KERNEL_MODULES = {"bitplane_pack": _pack, "bitserial_matmul_fused": _bsm,
-                   "conv2d_bitserial_fused": _conv}
+# Each kernel's launch counter: (wrapper module, counter attribute).
+_KERNEL_MODULES = {
+    "bitplane_pack": (_pack, "launches"),
+    "bitserial_matmul_fused": (_bsm, "launches"),
+    "bitserial_matmul_packed": (_bsm, "packed_launches"),
+    "conv2d_bitserial_fused": (_conv, "launches"),
+}
 
 
 def launch_counts() -> dict:
     """Kernel launches since the last :func:`reset_launch_counts`."""
-    return {name: mod.launches for name, mod in _KERNEL_MODULES.items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _KERNEL_MODULES.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _KERNEL_MODULES.values():
-        mod.launches = 0
+    for mod, attr in _KERNEL_MODULES.values():
+        setattr(mod, attr, 0)
 
 
 def pack_planes(q: torch.Tensor, bits: int) -> torch.Tensor:
@@ -49,6 +57,16 @@ def bitserial_matmul(qa: torch.Tensor, *, a_bits: int, w_bits: int,
     prepacked weight planes (``PackedWeight.planes``).
     """
     return _bsm.bitserial_matmul_fused(qa, pw, a_bits, w_bits)
+
+
+def bitserial_matmul_packed(pa: torch.Tensor, pw: torch.Tensor, *,
+                            a_bits: int, w_bits: int) -> torch.Tensor:
+    """Eq. 1 on two prepacked plane sets -> (M, N) int32.
+
+    ``pa`` (a_bits, M, KW) activation planes (:func:`pack_planes`); ``pw``
+    (w_bits, N, KW) weight planes.
+    """
+    return _bsm.bitserial_matmul_packed(pa, pw, a_bits, w_bits)
 
 
 def conv2d_bitserial(qx: torch.Tensor, pw: torch.Tensor, *, a_bits: int,

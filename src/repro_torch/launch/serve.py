@@ -17,7 +17,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core.bitserial import BACKENDS
+from repro_torch.core import BACKENDS
 from repro_torch.serving import (MODEL_ZOO, VisionEngine, VisionRequest,
                                  parse_precision)
 
@@ -61,7 +61,10 @@ def main(argv=None):
     ap.add_argument("--classes", type=int, default=1000)
     ap.add_argument("--precision", default="<8:8>",
                     help="'<W:I>' bit-widths, or 'float' for the fp path")
-    ap.add_argument("--backend", default="cuda", choices=BACKENDS)
+    ap.add_argument("--backend", default="cuda", choices=BACKENDS,
+                    help="Eq. 1 backend: cuda and popcount run the CUDA "
+                         "kernels, mxu-plane and int-direct a library "
+                         "product")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
                          "PyTorch versions")

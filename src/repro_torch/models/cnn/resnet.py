@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 
 from . import layers as L
+from .specs import affine_spec, conv_spec, fc_spec, pool_spec
 
 # (blocks, mid_channels) per stage; out = 4 * mid. Read at call time.
 _STAGES = [(3, 64), (4, 128), (6, 256), (3, 512)]
@@ -54,3 +55,36 @@ def apply(params, x, cfg=None):
                             2 if (b == 0 and s > 0) else 1, cfg)
     x = L.avg_pool_global(x)
     return L.fc_block(params["head"], x, cfg=cfg, relu=False)
+
+
+def layer_specs(batch=1, image=224, num_classes=1000):
+    specs = []
+    spec, h, _ = conv_spec("stem", batch, image, image, 3, 64, 7, 2, 3)
+    specs += [spec, affine_spec("stem.bn", "bn", spec.out_elems),
+              affine_spec("stem.q", "quant", spec.out_elems)]
+    pspec, h, _ = pool_spec("stem.pool", batch, h + 1, h + 1, 64, 3, 2)
+    specs.append(pspec)
+    cin = 64
+    for s, (blocks, mid) in enumerate(_STAGES):
+        cout = mid * 4
+        for b in range(blocks):
+            stride = 2 if (b == 0 and s > 0) else 1
+            pre = f"s{s}b{b}"
+            c1, h1, _ = conv_spec(f"{pre}.c1", batch, h, h, cin, mid, 1, 1, 0)
+            c2, h2, _ = conv_spec(f"{pre}.c2", batch, h1, h1, mid, mid, 3,
+                                  stride, 1)
+            c3, h3, _ = conv_spec(f"{pre}.c3", batch, h2, h2, mid, cout, 1, 1,
+                                  0)
+            for c in (c1, c2, c3):
+                specs += [c, affine_spec(f"{c.name}.bn", "bn", c.out_elems),
+                          affine_spec(f"{c.name}.q", "quant", c.out_elems)]
+            if b == 0:
+                pj, _, _ = conv_spec(f"{pre}.proj", batch, h, h, cin, cout, 1,
+                                     stride, 0)
+                specs += [pj, affine_spec(f"{pre}.proj.bn", "bn", pj.out_elems)]
+            h = h3
+            cin = cout
+    specs.append(affine_spec("gap", "pool_avg", batch * cin))
+    specs += [fc_spec("head", batch, cin, num_classes),
+              affine_spec("head.q", "quant", batch * num_classes)]
+    return specs

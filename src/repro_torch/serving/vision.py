@@ -16,8 +16,9 @@ with the same ``PIMQuantConfig`` — activation calibration is per batch in
 both, so results depend on bucket composition, as in the JAX package.
 
 The engine runs on ``device`` ("cuda" unless the caller asks otherwise):
-on a CUDA device every bit-serial product goes through the hand-written
-kernels; ``device="cpu"`` runs their plain PyTorch versions.
+on a CUDA device every bit-serial product of the "cuda" and "popcount"
+backends goes through the hand-written kernels; ``device="cpu"`` runs their
+plain PyTorch versions.
 """
 from __future__ import annotations
 
@@ -31,11 +32,11 @@ import torch
 
 from repro_torch import disable_tf32
 from repro_torch.core import PIMQuantConfig
+from repro_torch.models.cnn import MODELS
 from repro_torch.models.cnn import layers as L
-from repro_torch.models.cnn import resnet
 
 # The port's CNN zoo, keyed by serving name.
-MODEL_ZOO = {"resnet50": resnet}
+MODEL_ZOO = MODELS
 
 _PRECISION = re.compile(r"^<(\d+):(\d+)>$")
 
@@ -82,19 +83,19 @@ class VisionEngine:
     """Micro-batched CNN inference over a model registry.
 
     ``models`` maps a model name to its float param tree (names resolve
-    against the zoo: resnet50) or to an explicit ``(module, params)`` pair
-    for custom CNNs exposing ``apply(params, x, cfg=...)``.
+    against the zoo: alexnet, resnet50, vgg19) or to an explicit
+    ``(module, params)`` pair for custom CNNs exposing
+    ``apply(params, x, cfg=...)``.
 
     ``backend`` picks the Eq. 1 execution strategy for every quantized
-    request ("cuda", the only one ported); requests pick their own
-    precision. ``max_batch`` is the largest micro-batch bucket (rounded
-    down to a power of two).
+    request (one of ``BACKENDS``: "cuda", "popcount", "mxu-plane",
+    "int-direct"); requests pick their own precision. ``max_batch`` is the
+    largest micro-batch bucket (rounded down to a power of two).
     """
 
     def __init__(self, models: dict, backend: str = "cuda",
                  max_batch: int = 8, device="cuda"):
-        if backend != "cuda":
-            raise ValueError(f"backend {backend!r}: the port has 'cuda' only")
+        PIMQuantConfig(backend=backend)     # rejects an unknown backend
         self.device = resolve_device(device)
         disable_tf32()
         self._models = {}

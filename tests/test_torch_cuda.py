@@ -50,9 +50,28 @@ def test_matmul_kernel_equals_plain(gen, m, k, n, bits):
                                                        bits))
 
 
+@pytest.mark.parametrize("m,kw,n", [
+    (8, 2, 192), (8, 2, 320),     # the Pallas bn % 128 != 0 regression shapes
+    (8, 288, 4096),               # AlexNet fc1, a bucket of 8
+    (8, 128, 1000),               # AlexNet head
+    (37, 13, 131),                # M, KW and N all ragged against the tile
+    (5832, 75, 256)])             # AlexNet conv2 im2col, a bucket of 8
+@pytest.mark.parametrize("ab,wb", [(2, 2), (4, 4), (8, 8), (3, 5)])
+def test_packed_matmul_kernel_equals_plain(gen, m, kw, n, ab, wb):
+    """Kernel 4 on random full words (bit 31 set), so every lane counts."""
+    def words(shape):
+        return torch.randint(-2**31, 2**31, shape, generator=gen,
+                             device="cuda", dtype=torch.int64).to(torch.int32)
+    pa, pw = words((ab, m, kw)), words((wb, n, kw))
+    assert torch.equal(km.bitserial_matmul_packed(pa, pw, ab, wb),
+                       km.packed_matmul_plain(pa, pw))
+
+
 @pytest.mark.parametrize("shape,o,ks,stride,pad", [
     ((2, 9, 13, 5), 131, 3, 2, 1), ((1, 20, 20, 3), 64, 7, 2, 3),
-    ((2, 8, 8, 128), 128, 3, 1, 1), ((1, 5, 5, 600), 70, 3, 1, 0)])
+    ((2, 8, 8, 128), 128, 3, 1, 1), ((1, 5, 5, 600), 70, 3, 1, 0),
+    ((1, 64, 64, 3), 96, 11, 4, 2),        # AlexNet conv1 11x11/4
+    ((2, 7, 7, 96), 256, 5, 1, 2)])        # AlexNet conv2 5x5
 @pytest.mark.parametrize("bits", [2, 8])
 def test_conv_kernel_equals_plain(gen, shape, o, ks, stride, pad, bits):
     qx = F.pad(_codes(gen, shape, bits), (0, 0, pad, pad, pad, pad))
@@ -89,7 +108,35 @@ def test_cuda_layers_launch_kernels_and_no_library_product(gen, monkeypatch):
     got_fc = tpl.pim_linear(x[:, 0, 0], fc, cfg=cfg)
     assert ops.launch_counts() == {"bitplane_pack": 1,
                                    "bitserial_matmul_fused": 1,
+                                   "bitserial_matmul_packed": 0,
                                    "conv2d_bitserial_fused": 1}
     np.testing.assert_array_equal(got_conv.cpu().numpy(), want_conv.numpy())
     np.testing.assert_allclose(got_fc.cpu().numpy(), want_fc.numpy(),
                                rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("bits", [2, 8])
+def test_cuda_backends_equal_and_popcount_launches_kernel_4(gen, monkeypatch,
+                                                            bits):
+    """The four Eq. 1 backends give the same P on the card; popcount does
+    it with one pack and one packed-matmul launch and no library product."""
+    from repro_torch.core import bitserial as tbs
+
+    qa = _codes(gen, (300, 363), bits)
+    pk = prepack(torch.randn((363, 96), generator=gen, device="cuda"), bits)
+    want = tbs.int_matmul_prepacked(qa, pk, bits, "int-direct")
+    for backend in ("mxu-plane", "cuda"):
+        assert torch.equal(tbs.int_matmul_prepacked(qa, pk, bits, backend),
+                           want), backend
+
+    def banned(*a, **k):
+        raise AssertionError("library kernel reached on the popcount path")
+
+    monkeypatch.setattr(torch, "matmul", banned)
+    ops.reset_launch_counts()
+    got = tbs.int_matmul_prepacked(qa, pk, bits, "popcount")
+    assert ops.launch_counts() == {"bitplane_pack": 1,
+                                   "bitserial_matmul_fused": 0,
+                                   "bitserial_matmul_packed": 1,
+                                   "conv2d_bitserial_fused": 0}
+    assert torch.equal(got, want)

@@ -115,8 +115,11 @@ def test_plain_versions_do_not_count_launches():
     qx = t(_codes((1, 5, 5, 8), 4, 5))
     tops.conv2d_bitserial(qx, tpk.prepack_conv(torch.randn(3, 3, 8, 4),
                                                4).fused_planes, a_bits=4)
+    tops.bitserial_matmul_packed(tops.pack_planes(qa, 4), pw, a_bits=4,
+                                 w_bits=4)
     assert tops.launch_counts() == {"bitplane_pack": 0,
                                     "bitserial_matmul_fused": 0,
+                                    "bitserial_matmul_packed": 0,
                                     "conv2d_bitserial_fused": 0}
 
 

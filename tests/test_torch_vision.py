@@ -245,13 +245,19 @@ def test_launcher_serves_on_cpu_when_asked(small_resnet, capsys):
 
 
 def _port_sources():
-    return sorted((_REPO / "src" / "repro_torch").rglob("*.py")) + [
-        _REPO / "chip_smoke.py"]
+    """The port's Python files, without the kernels' build directory (build
+    output, which may also hold unpacked trees of other versions)."""
+    build = _REPO / "src" / "repro_torch" / "kernels" / "build"
+    return sorted(p for p in (_REPO / "src" / "repro_torch").rglob("*.py")
+                  if build not in p.parents) + sorted(
+        (_REPO / "examples").glob("torch_*.py")) + [_REPO / "chip_smoke.py"]
 
 
 def test_port_sources_import_no_jax_or_repro():
-    """No import statement anywhere in the port (lazy ones included) or in
-    chip_smoke.py names jax, jaxlib or repro."""
+    """No import statement anywhere in the port (lazy ones included), in
+    its examples (examples/torch_*.py) or in chip_smoke.py names jax,
+    jaxlib or repro."""
+    assert len(_port_sources()) >= 37
     banned = ("jax", "jaxlib", "repro")
     for path in _port_sources():
         for node in ast.walk(ast.parse(path.read_text())):
@@ -266,11 +272,14 @@ def test_port_sources_import_no_jax_or_repro():
 
 def test_importing_every_port_module_loads_no_jax_or_repro():
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, importlib.util, pathlib, pkgutil, sys\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "for path in sorted(pathlib.Path('examples').glob('torch_*.py')):\n"
+        "    spec = importlib.util.spec_from_file_location(path.stem, path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
