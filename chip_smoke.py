@@ -10,7 +10,7 @@ failed phase, without a GPU, or outside a checkout.
 
 1. Prints the card's name and power limit; turns TF32 off.
 2. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc``.
-3. Holds each of the four kernels against its plain PyTorch version on the
+3. Holds each of kernels 1-4 against its plain PyTorch version on the
    card with ``torch.equal`` at the shapes ResNet-50, AlexNet and VGG19
    give it at 224 px in a bucket of 8, plus ragged shapes at <2:2>, <4:4>
    and <8:8>; prints one JSON line per shape with the kernel's time, the
@@ -18,7 +18,13 @@ failed phase, without a GPU, or outside a checkout.
    exactly, and the least time the card could take for the same P
    (``bound_ms``), beside the least time of the kernel's own algorithm at
    the card's popcount rate (``popc_bound_ms``). Then holds the four Eq. 1
-   backends' P equal to each other at AlexNet conv1's im2col shape.
+   backends' P equal to each other at AlexNet conv1's im2col shape, kernel
+   2 at rwkv6-3b's projection shapes, and kernel 5 against its plain
+   version at a batch-1 prefill's shapes (40 heads of 64, S = 16, 64,
+   256) and the reference test's sweep. Kernel 2 is held at every
+   projection shape of rwkv6-3b (K x N of 2560 x 2560, 2560 x 8960, 8960 x
+   2560 and the head's 2560 x 65536) at prefill M = 256, 16 and 1 and at
+   decode M = 4, and at K = N = 2560 for each other power-of-two chunk.
 4. Serves 12 requests (buckets 8 + 4) through ``VisionEngine`` with
    ResNet-50 (random weights from a seed, 1000 classes, 224 px, <8:8>,
    backend "cuda") twice, a warm run and a timed run, and checks that every
@@ -34,12 +40,34 @@ failed phase, without a GPU, or outside a checkout.
    equal top-1, logits within rtol 1e-3 and atol 1e-3*max|cpu| (the
    integer P is exact on both; the global average pool and the float
    epilogues reduce in another order on the GPU).
+7. Serves rwkv6-3b at its published width and depth (32 layers, d_model
+   2560, vocab 65,536; random weights from a seed) through ``ServeEngine``:
+   in bf16 (projections in ``torch.matmul``, every prefill chunk of 16 or
+   more tokens through kernel 5), then with <8:8> on the "cuda" backend in
+   float32 (every projection and the head through kernel 2 as well). Eight
+   requests with prompts of 64-512 tokens on 4 slots, greedy, a warm run
+   and a timed run with the launch counts set to 0 just before it and read
+   just after; prints prefill and decode tok/s and the ms of a decode_n
+   dispatch, checks the path's kernels launched and the logits are finite,
+   then profiles one admission and one decode dispatch for the idle share.
+8. Serves rwkv6-3b at full width, 2 layers, float32, on the card and on
+   the CPU from the same weights: a 48-token prompt (chunks 32 + 16, both
+   through kernel 5 on the card) and 4 greedy tokens: equal tokens, and
+   prefill logits within rtol 1e-3 and atol 1e-3*max|cpu|. Then one layer
+   at <8:8> on "cuda" against the CPU (prefill of two prompts into a
+   4-slot grid, two decode steps at M = 4): prepacked planes equal bit for
+   bit, every quantized product within 1e-5 of the CPU's on the same
+   input, logits within 0.1 in relative L2 (``lm_pim_gpu_vs_cpu``).
+
+Kernel 5 (the chunked WKV) is float32 arithmetic that sums in another
+order than its plain version, so it is held to the reference's tolerances
+(y relative 1e-4, state absolute 1e-3), not ``torch.equal``.
 
 Each phase prints its wall seconds on a line of its own. The last three
 lines are the card's name and power limit, the per-kernel summary
 ``{"kernels": [...]}`` (launches counted on the ResNet-50 path for kernels
-1-3 and on the AlexNet popcount path for kernel 4), and
-``{"ok": true, "device": {...}}``.
+1-3, on the AlexNet popcount path for kernel 4 and on the bf16 rwkv6-3b
+path for kernel 5), and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -63,6 +91,7 @@ SRC = ROOT / "src"
 # capability 9.0) times the SM count and the card's maximum SM clock.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
+FP32_FLOPS_PER_S = 67e12      # float32 outside the tensor cores
 POPC_PER_CLOCK_PER_SM = 16
 
 KERNEL_INFO = {
@@ -78,6 +107,9 @@ KERNEL_INFO = {
     "conv2d_bitserial_fused": dict(
         source="src/repro_torch/kernels/csrc/conv2d_fused.cu",
         replaces="src/repro/kernels/conv2d_fused.py:73"),
+    "wkv_chunked": dict(
+        source="src/repro_torch/kernels/csrc/wkv_chunked.cu",
+        replaces="src/repro/kernels/rwkv_chunk.py:67"),
 }
 
 
@@ -129,9 +161,9 @@ class KernelChecks:
         self.rows = []
 
     @staticmethod
-    def _bound(nbytes: float, macs: float) -> tuple:
+    def _bound(nbytes: float, macs: float, ops_per_s=INT8_OPS_PER_S) -> tuple:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = 2 * macs / INT8_OPS_PER_S * 1e3
+        t_ops = 2 * macs / ops_per_s * 1e3
         return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
     def _codes(self, shape, bits):
@@ -247,6 +279,79 @@ class KernelChecks:
             nbytes=4 * ab * n * hp * hp * cw + pk.fused_planes.numel() * 4
             + 4 * n * oh * oh * o, macs=n * oh * oh * o * ks * ks * c,
             popcs=n * oh * oh * o * ks * ks * cw * ab * wb, timing=timing)
+
+
+    def wkv(self, bh, s, d, chunk, timing=True):
+        """Kernel 5 against its plain chunked version on the reference
+        test's distributions: y within 1e-4 of max|y| and the state within
+        1e-3 absolute (float32 sums in another order)."""
+        torch = self.torch
+        from repro_torch.kernels import rwkv_chunk as kw
+
+        def randn(*shape):
+            return torch.randn(shape, generator=self.gen, device="cuda")
+
+        r, k, v = (randn(bh, s, d) * 0.5 for _ in range(3))
+        lw = torch.clamp_min(-torch.exp(randn(bh, s, d) - 2), -5.0)
+        a = (r, k, v, lw, randn(bh, d) * 0.2, randn(bh, d, d) * 0.1)
+        y, s_fin = kw.wkv_chunked(*a, chunk=chunk)
+        y_want, s_want = kw.wkv_chunked_plain(*a, chunk)
+        torch.cuda.synchronize()
+        y_err = (y - y_want).abs().max().item()
+        s_err = (s_fin - s_want).abs().max().item()
+        shape = dict(BH=bh, S=s, D=d, chunk=chunk)
+        if not (y_err <= 1e-4 * y_want.abs().max().item()
+                and s_err <= 1e-3):
+            raise AssertionError(f"wkv_chunked {shape}: kernel != plain "
+                                 f"(y {y_err}, state {s_err})")
+        row = dict(kernel="wkv_chunked", shape=shape, bits="float32",
+                   max_abs_err=y_err, state_max_abs_err=s_err)
+        if timing:
+            # Each input read once, each output written once; the work is
+            # the chunked algebra's multiply-adds (the strict lower A and
+            # A v, the carry-in r~ S, the state update), at the float32
+            # rate outside the tensor cores.
+            nbytes = 4 * (5 * bh * s * d + bh * d + 2 * bh * d * d)
+            n_chunks = s // chunk
+            macs = bh * n_chunks * (chunk * (chunk - 1) * d
+                                    + 2 * chunk * d * d + chunk * d)
+            bound_ms, bound_by = self._bound(nbytes, macs, FP32_FLOPS_PER_S)
+            row.update(
+                kernel_ms=timed_ms(lambda: kw.wkv_chunked(*a, chunk=chunk),
+                                   20),
+                plain_ms=timed_ms(lambda: kw.wkv_chunked_plain(*a, chunk),
+                                  2),
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                popc_bound_ms=None)
+        print(json.dumps(row), flush=True)
+        self.rows.append(row)
+
+
+def profile_call(torch, fn) -> dict:
+    """Device time by kernel over one call of ``fn`` (torch.profiler), its
+    wall time under the profiler and the device's idle share of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    events = prof.key_averages()
+    dev = {e.key: (e.device_time_total / 1e3, e.count) for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA}
+    host_calls = {e.key: e.count for e in events
+                  if e.device_type == torch.autograd.DeviceType.CPU}
+    device_ms = sum(ms for ms, _ in dev.values())
+    top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:10]
+    return dict(wall_ms=wall_ms, device_ms=device_ms,
+                idle_share=1 - device_ms / wall_ms if wall_ms else None,
+                launches_on_device=sum(n for _, n in dev.values()),
+                syncs=sum(host_calls.get(k, 0) for k in (
+                    "cudaStreamSynchronize", "cudaDeviceSynchronize",
+                    "cudaMemcpy")),
+                top=[[k[:80], ms, n] for k, (ms, n) in top])
 
 
 def profile_bucket(torch, eng, imgs, request_cls, model) -> dict:
@@ -392,6 +497,305 @@ def gpu_vs_cpu(torch, np, module, model, backend, image):
                           max_abs_diff=err, max_abs_cpu=scale)), flush=True)
 
 
+# Kernels each served rwkv6-3b path must launch.
+LM_PATH_KERNELS = {"bf16": ("wkv_chunked",),
+                   "<8:8> cuda": ("wkv_chunked", "bitserial_matmul_fused")}
+LM_MAX_BATCH = 4
+LM_MAX_LEN = 544      # the longest prompt, 512, and 32 new tokens
+
+
+def lm_prompts(np, vocab: int) -> list:
+    """Eight prompts of 64-512 tokens from numpy seed 0."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 513, size=8)
+    return [rng.integers(0, vocab, size=int(n)).astype(np.int32)
+            for n in lens]
+
+
+def serve_lm(torch, np, ops, cfg, params, label, max_new, warm_requests):
+    """One served rwkv6-3b path: a warm run of ``warm_requests`` requests,
+    then the timed run of eight with the launch counts set to 0 just before
+    it and read just after. Admission and decode dispatches are timed on
+    the host (each ends in a device-to-host read), for prefill and decode
+    tok/s. Then checks the path's kernels launched, the tokens and the
+    logits of one prefill, and profiles one admission plus one decode
+    dispatch of 8 steps for the device's idle share."""
+    from repro_torch.models.lm import model as M
+    from repro_torch.serving import Request, SamplerConfig, ServeEngine
+
+    prompts = lm_prompts(np, cfg.vocab)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    eng = ServeEngine(cfg, params, max_batch=LM_MAX_BATCH,
+                      max_len=LM_MAX_LEN,
+                      sampler=SamplerConfig(temperature=0.0), device="cuda")
+    torch.cuda.synchronize()
+    deploy_s = time.perf_counter() - t
+    stats = {}
+    admit, decode_n = eng._admit, eng._decode_n
+
+    def timed_admit():
+        before = sum(len(r.prompt) for r in eng.queue)
+        t = time.perf_counter()
+        admit()
+        torch.cuda.synchronize()
+        stats["prefill_s"] += time.perf_counter() - t
+        stats["prefill_tokens"] += before - sum(len(r.prompt)
+                                                for r in eng.queue)
+
+    def timed_decode(n):
+        t = time.perf_counter()
+        out = decode_n(n)                     # ends in the host read
+        ms = (time.perf_counter() - t) * 1e3
+        stats["decode_s"] += ms / 1e3
+        stats["dispatch_ms"].setdefault(n, []).append(ms)
+        return out
+
+    eng._admit, eng._decode_n = timed_admit, timed_decode
+
+    def serve(n_req):
+        stats.update(prefill_s=0.0, prefill_tokens=0, decode_s=0.0,
+                     dispatch_ms={})
+        for rid in range(n_req):
+            eng.submit(Request(rid=rid, prompt=prompts[rid],
+                               max_new_tokens=max_new))
+        t = time.perf_counter()
+        done = eng.run(strict=True)
+        torch.cuda.synchronize()
+        return sorted(done, key=lambda c: c.rid), time.perf_counter() - t
+
+    serve(warm_requests)
+    ops.reset_launch_counts()
+    done, wall = serve(len(prompts))
+    launches = ops.launch_counts()
+    del eng._admit, eng._decode_n
+    if [len(c.tokens) for c in done] != [max_new] * len(prompts) or not all(
+            0 <= tok < cfg.vocab for c in done for tok in c.tokens):
+        raise AssertionError(f"rwkv6-3b {label}: wrong completions "
+                             f"{[(c.rid, len(c.tokens)) for c in done]}")
+    missing = [k for k in LM_PATH_KERNELS[label] if not launches[k]]
+    if missing:
+        raise AssertionError(f"rwkv6-3b {label}: {missing} never launched "
+                             f"on the main path: {launches}")
+    with torch.no_grad():
+        st = M.init_state(cfg, 1, LM_MAX_LEN, "cuda")
+        logits, _ = M.prefill(eng.params, cfg, torch.from_numpy(
+            prompts[0][:256]).cuda()[None], st)
+    if logits.shape != (1, 1, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"rwkv6-3b {label}: non-finite or misshapen "
+                             "logits")
+    decode_tokens = sum(len(c.tokens) - 1 for c in done)
+    row = dict(
+        serving="rwkv6-3b", path=label, layers=cfg.n_layers,
+        d_model=cfg.d_model, vocab=cfg.vocab, requests=len(prompts),
+        max_batch=LM_MAX_BATCH, max_new=max_new,
+        prompt_tokens=stats["prefill_tokens"], wall_s=wall,
+        deploy_s=deploy_s, tok_per_s=sum(len(c.tokens) for c in done) / wall,
+        prefill_s=stats["prefill_s"],
+        prefill_tok_per_s=stats["prefill_tokens"] / stats["prefill_s"],
+        decode_s=stats["decode_s"],
+        decode_tok_per_s=decode_tokens / stats["decode_s"],
+        decode_dispatch_ms={n: float(np.median(v))
+                            for n, v in stats["dispatch_ms"].items()},
+        decode_dispatches={n: len(v) for n, v in stats["dispatch_ms"].items()},
+        launches=launches,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(json.dumps(row), flush=True)
+    # One admission of a 256-token prompt (one chunk) and one decode
+    # dispatch of 8 steps, profiled.
+    eng.submit(Request(rid=99, prompt=prompts[0][:256], max_new_tokens=9))
+    ops.reset_launch_counts()
+    got = []
+    prof = profile_call(torch, lambda: got.extend(eng.step()))
+    if [c.rid for c in got] != [99] or len(got[0].tokens) != 9:
+        raise AssertionError(f"rwkv6-3b {label}: profiled step gave {got}")
+    prof["launches"] = ops.launch_counts()
+    print(json.dumps(dict(profile_admit_256_decode_8=prof, serving="rwkv6-3b",
+                          path=label)), flush=True)
+    return launches
+
+
+def lm_gpu_vs_cpu(torch, np, ops):
+    """rwkv6-3b at full width, 2 layers, float32, one set of weights, on the
+    card and on the CPU (plain versions): a 48-token prompt (chunks 32 +
+    16) and 4 greedy tokens. Equal tokens; prefill logits within rtol 1e-3
+    and atol 1e-3*max|cpu|."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import model as M
+    from repro_torch.serving import Request, SamplerConfig, ServeEngine
+
+    cfg = dataclasses.replace(get_config("rwkv6-3b").model, n_layers=2,
+                              dtype="float32")
+    params = M.init(cfg, torch.Generator().manual_seed(1), device="cpu")
+    prompt = np.random.default_rng(2).integers(0, cfg.vocab, 48).astype(
+        np.int32)
+    logits, toks = {}, {}
+    ops.reset_launch_counts()
+    for device in ("cuda", "cpu"):
+        with torch.no_grad():
+            lo, _ = M.prefill(M.to_device(params, device), cfg,
+                              torch.from_numpy(prompt)[None].to(device),
+                              M.init_state(cfg, 1, 64, device))
+        logits[device] = lo.cpu().numpy()
+        eng = ServeEngine(cfg, params, max_batch=1, max_len=64,
+                          sampler=SamplerConfig(temperature=0.0),
+                          device=device)
+        eng.submit(Request(rid=0, prompt=prompt, max_new_tokens=4))
+        toks[device] = eng.run(strict=True)[0].tokens
+        del eng
+    launches = ops.launch_counts()["wkv_chunked"]
+    gpu, cpu = logits["cuda"], logits["cpu"]
+    err = float(np.abs(gpu - cpu).max())
+    scale = float(np.abs(cpu).max())
+    if toks["cuda"] != toks["cpu"] or not launches or not np.allclose(
+            gpu, cpu, rtol=1e-3, atol=1e-3 * scale):
+        raise AssertionError(
+            f"rwkv6-3b GPU vs CPU: tokens {toks['cuda']} vs {toks['cpu']}, "
+            f"max |dlogit| {err} (max|cpu| {scale}), kernel 5 launches "
+            f"{launches}")
+    print(json.dumps(dict(gpu_vs_cpu="rwkv6-3b", layers=2, prompt=48,
+                          tokens=toks["cuda"], max_abs_diff=err,
+                          max_abs_cpu=scale, wkv_launches=launches)),
+          flush=True)
+
+
+def _packed_leaves(tree, path=""):
+    """(path, PackedWeight) of every prepacked leaf of an LM tree."""
+    from repro_torch.core.packed import PackedWeight
+
+    if isinstance(tree, PackedWeight):
+        yield path, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _packed_leaves(v, f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _packed_leaves(v, f"{path}/{i}")
+
+
+def lm_pim_gpu_vs_cpu(torch, np, ops):
+    """rwkv6-3b at full width, 1 layer, <8:8> on "cuda", float32, one set of
+    weights, on the card and on the CPU. Two prompts (48 = 32 + 16 and 20 =
+    16 + 4) are prefilled chunk by chunk into slots 0 and 1 of a 4-slot
+    grid, then two decode steps run at M = 4 on the same tokens.
+
+    The path is chaotic end to end: one float ulp of jitter flips an
+    activation code at a quantization boundary, a flip moves an output by a
+    whole code step, and the next layers spread it (on the CPU alone,
+    weights moved by 1e-6 relative move one reduced layer's logits by 1-3%
+    in relative L2, `examples/torch_pim_lm_jitter.py`). So it is held in
+    three parts:
+    1. the planes prepacked on the card equal the CPU's bit for bit (codes,
+       planes, column sums, scale, zero point);
+    2. every quantized product of the card's run (each projection and the
+       head, each prefill chunk and decode step) recomputed on the CPU from
+       the same input: the same activation codes and the same integer P, so
+       the output agrees within 1e-5 of its largest;
+    3. the logits against the CPU's own run: each row within 0.1 in
+       relative L2, where a wiring fault gives O(1); the error is printed.
+    The CPU runs ``int-direct``, whose P equals Eq. 1's bit for bit
+    (``backends_agree``) and which is far faster there than the plain
+    version of kernel 2."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import PIMQuantConfig, pim_layers
+    from repro_torch.models.lm import model as M
+    from repro_torch.serving.engine import _pow2_chunks
+
+    arch = dataclasses.replace(get_config("rwkv6-3b").model, n_layers=1,
+                               dtype="float32")
+    params = M.init(arch, torch.Generator().manual_seed(3), device="cpu")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, arch.vocab, n).astype(np.int64)
+               for n in (48, 20)]
+    real, calls, logits, packed = pim_layers.quantized_matmul, [], {}, {}
+
+    def spy(a, w, **kw):
+        y = real(a, w, **kw)
+        calls.append((a.cpu(), w, kw, y.cpu()))
+        return y
+
+    for device, backend in (("cpu", "int-direct"), ("cuda", "cuda")):
+        cfg = dataclasses.replace(arch, pim=PIMQuantConfig(8, 8,
+                                                           backend=backend))
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            p = packed[device] = M.prepack_params(M.to_device(params, device),
+                                                  cfg.pim)
+            st = M.init_state(cfg, LM_MAX_BATCH, 64, device)
+            out = []
+            if device == "cuda":
+                pim_layers.quantized_matmul = spy
+            try:
+                for slot, prompt in enumerate(prompts):
+                    pos = 0
+                    for c in _pow2_chunks(len(prompt)):
+                        lo, st = M.prefill_into_slot(
+                            p, cfg, torch.from_numpy(
+                                prompt[pos:pos + c])[None].to(device), st,
+                            slot, pos)
+                        pos += c
+                    out.append(lo[:, 0].cpu().numpy())
+                if device == "cpu":
+                    toks = [np.array([int(o.argmax()) for o in out] + [0] * (
+                        LM_MAX_BATCH - len(out)))]
+                for step in range(2):
+                    lo, st = M.decode_step(p, cfg, torch.from_numpy(
+                        toks[step])[:, None].to(device), st)
+                    out.append(lo[:, 0].cpu().numpy())
+                    if device == "cpu" and step == 0:
+                        toks.append(out[-1].argmax(-1))
+            finally:
+                pim_layers.quantized_matmul = real
+        logits[device] = out
+        launches = ops.launch_counts()
+        del st
+    leaves = dict(_packed_leaves(packed["cpu"]))
+    gpu_leaves = dict(_packed_leaves(packed["cuda"]))
+    if sorted(leaves) != sorted(gpu_leaves) or not leaves:
+        raise AssertionError(f"prepacked leaves differ: {sorted(leaves)} vs "
+                             f"{sorted(gpu_leaves)}")
+    for path, w in leaves.items():
+        g = gpu_leaves[path].to("cpu")
+        for name in ("codes", "planes", "col_sums"):
+            if not torch.equal(getattr(w, name), getattr(g, name)):
+                raise AssertionError(f"prepacked {path}.{name}: card != CPU")
+        if not (torch.equal(w.wq.scale, g.wq.scale)
+                and torch.equal(w.wq.qmin, g.wq.qmin)):
+            raise AssertionError(f"prepacked {path} scale/qmin: card != CPU")
+    call_err, on_cpu = 0.0, {}
+    for a, w, kw, y in calls:
+        w_cpu = on_cpu.setdefault(id(w), w.to("cpu"))
+        want = real(a, w_cpu, **dict(kw, backend="int-direct"))
+        err = float((y - want).abs().max() / want.abs().max())
+        call_err = max(call_err, err)
+        if y.shape != want.shape or err > 1e-5:
+            raise AssertionError(f"<8:8> product on the card vs the CPU: "
+                                 f"{tuple(a.shape)} x {w.shape}, max |dy| "
+                                 f"{err} of max |y|")
+    rel_l2 = [float(np.max(np.linalg.norm(g - c, axis=-1)
+                           / np.linalg.norm(c, axis=-1)))
+              for g, c in zip(logits["cuda"], logits["cpu"])]
+    scale = max(float(np.abs(c).max()) for c in logits["cpu"])
+    err = max(float(np.abs(g - c).max())
+              for g, c in zip(logits["cuda"], logits["cpu"]))
+    if max(rel_l2) > 0.1 or len(calls) != launches["bitserial_matmul_fused"] \
+            or not launches["wkv_chunked"]:
+        raise AssertionError(
+            f"rwkv6-3b <8:8> GPU vs CPU: logits relative L2 {rel_l2}, "
+            f"{len(calls)} products, launches {launches}")
+    print(json.dumps(dict(gpu_vs_cpu="rwkv6-3b <8:8> cuda", layers=1,
+                          prompts=[len(x) for x in prompts], decode_steps=2,
+                          max_batch=LM_MAX_BATCH, packed_leaves=len(leaves),
+                          products=len(calls), product_max_rel_err=call_err,
+                          logits_rel_l2=rel_l2, max_abs_diff=err,
+                          max_abs_cpu=scale, launches=launches)), flush=True)
+
+
 def backends_agree(torch, m, k, n, bits):
     """P of the four Eq. 1 backends on the card, equal bit for bit."""
     from repro_torch.core import bitserial
@@ -498,6 +902,24 @@ def main() -> int:
             kc.packed(8, 4000, 1000, bits, bits, timing=bits == 8)
             kc.conv(2, 9, 5, 131, 3, 2, 1, bits, bits, timing=False)
         backends_agree(torch, 8 * 55 * 55, 363, 96, 8)   # AlexNet conv1
+        # rwkv6-3b: kernel 5 at a batch-1 prefill's shapes (40 heads of 64)
+        # and the reference test's sweep; kernel 2 at the LM's projections.
+        for s in (16, 64, 256):
+            kc.wkv(40, s, 64, 16)
+        for bh, s, d, chunk in ((2, 32, 8, 8), (6, 64, 16, 16),
+                                (1, 48, 32, 16), (4, 128, 16, 32)):
+            kc.wkv(bh, s, d, chunk, timing=False)
+        # Prefill runs M = each power-of-two chunk (256 down to 1), decode M
+        # = LM_MAX_BATCH; K x N is 2560 x 2560 (time mix, channel-mix w_r),
+        # 2560 x 8960 (channel-mix w_k), 8960 x 2560 (w_v), 2560 x 65536
+        # (the head, M = 1 in prefill).
+        for m in (256, 16, LM_MAX_BATCH):
+            for k, n in ((2560, 2560), (2560, 8960), (8960, 2560)):
+                kc.matmul(m, k, n, 8, 8)
+        kc.matmul(1, 2560, 65536, 8, 8)               # the head in prefill
+        kc.matmul(LM_MAX_BATCH, 2560, 65536, 8, 8)    # the head in decode
+        for m in (128, 64, 32, 8, 2, 1):
+            kc.matmul(m, 2560, 2560, 8, 8, timing=False)
 
     imgs = np.random.default_rng(0).standard_normal(
         (12, 224, 224, 3)).astype(np.float32)
@@ -545,6 +967,37 @@ def main() -> int:
         with phase(f"gpu vs cpu {model} {backend}"):
             gpu_vs_cpu(torch, np, module, model, backend, image)
 
+    # -- 7. serving rwkv6-3b ---------------------------------------------------
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import PIMQuantConfig
+    from repro_torch.models.lm import model as lm
+
+    arch = get_config("rwkv6-3b").model
+    with phase("serve rwkv6-3b bf16"):
+        params = lm.cast_params(
+            lm.init(arch, torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda"), torch.bfloat16)
+        lm_launches = serve_lm(torch, np, ops, arch, params, "bf16",
+                               max_new=32, warm_requests=8)
+        del params
+        torch.cuda.empty_cache()
+    with phase("serve rwkv6-3b <8:8> cuda"):
+        cfg = dataclasses.replace(arch, dtype="float32",
+                                  pim=PIMQuantConfig(8, 8, backend="cuda"))
+        params = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+        serve_lm(torch, np, ops, cfg, params, "<8:8> cuda", max_new=16,
+                 warm_requests=2)
+        del params
+        torch.cuda.empty_cache()
+
+    # -- 8. rwkv6-3b against the CPU's plain versions --------------------------
+    with phase("gpu vs cpu rwkv6-3b"):
+        lm_gpu_vs_cpu(torch, np, ops)
+        lm_pim_gpu_vs_cpu(torch, np, ops)
+
     kernels = [
         summary(kc.rows, "bitplane_pack", launches["bitplane_pack"],
                 dict(M=8 * 58 * 58, K=64)),
@@ -557,6 +1010,8 @@ def main() -> int:
         summary(kc.rows, "conv2d_bitserial_fused",
                 launches["conv2d_bitserial_fused"],
                 dict(N=8, H=56, C=64, O=64, k=3, stride=1, pad=1)),
+        summary(kc.rows, "wkv_chunked", lm_launches["wkv_chunked"],
+                dict(BH=40, S=256, D=64, chunk=16)),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

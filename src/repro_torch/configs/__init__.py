@@ -1,4 +1,41 @@
-"""Configurations of the port (the paper's CNN benchmarks so far)."""
+"""Configurations of the port: the paper's CNN benchmarks and the LM
+architectures ported so far.
+
+``get_config("<arch-id>")`` returns the published :class:`ArchConfig` of a
+ported architecture. The JAX package registers ten; the other nine raise a
+``KeyError`` that names them as not ported yet (``ROADMAP.md`` Queue 1).
+"""
+from __future__ import annotations
+
+import importlib
+
+from .base import SHAPES, ArchConfig, ShapeSpec
 from .paper_cnns import CONFIGS, WI_SWEEP, CNNBenchConfig
 
-__all__ = ["CONFIGS", "WI_SWEEP", "CNNBenchConfig"]
+_MODULES = {
+    "rwkv6-3b": "rwkv6_3b",
+}
+
+# Registered by the JAX package, still to port with their block kinds.
+NOT_PORTED = (
+    "grok-1-314b", "phi3.5-moe-42b-a6.6b", "recurrentgemma-9b",
+    "musicgen-large", "llama3.2-3b", "qwen1.5-4b", "qwen3-0.6b",
+    "granite-3-2b", "llama-3.2-vision-90b",
+)
+
+ARCH_IDS = tuple(_MODULES)
+
+
+def get_config(arch_id: str) -> ArchConfig:
+    if arch_id in NOT_PORTED:
+        raise KeyError(f"arch {arch_id!r} is not ported yet; ported: "
+                       f"{', '.join(ARCH_IDS)}")
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {', '.join(ARCH_IDS)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+    return mod.CONFIG
+
+
+__all__ = ["ARCH_IDS", "CONFIGS", "NOT_PORTED", "SHAPES",
+           "WI_SWEEP", "ArchConfig", "CNNBenchConfig", "ShapeSpec",
+           "get_config"]

@@ -1,9 +1,12 @@
 """Carry a parameter tree of the JAX package across to the port.
 
-``params_from_jax(tree)`` takes the JAX package's CNN parameter tree as
-nested dicts of numpy arrays (``jax.device_get`` of it) and returns the
-same tree of float32 CPU tensors, so both packages compute with the same
-weights. This module imports no JAX.
+``params_from_jax(tree)`` takes a JAX parameter tree as numpy (``jax.
+device_get`` of it, or the arrays themselves): the CNN trees and the LM
+tree alike, nested dicts and lists with stacked leaves. It returns the same
+tree of CPU tensors, so both packages compute with the same weights. Each
+leaf goes through numpy as float32 and keeps its type: a bf16 leaf (numpy's
+``ml_dtypes`` bfloat16) comes back as ``torch.bfloat16``, which is exact.
+This module imports no JAX.
 """
 from __future__ import annotations
 
@@ -14,4 +17,8 @@ import torch
 def params_from_jax(tree):
     if isinstance(tree, dict):
         return {k: params_from_jax(v) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree, dtype=np.float32, copy=True))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_jax(v) for v in tree)
+    a = np.asarray(tree)
+    t = torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+    return t.to(torch.bfloat16) if a.dtype.name == "bfloat16" else t

@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels for the paper's Eq. 1 hot spot (sm_90a).
+"""Hand-written CUDA kernels for sm_90a (H100): the paper's Eq. 1 hot spot
+and the RWKV-6 WKV recurrence.
 
   csrc/*.cu            the kernels, each a plain-C shared library
   _build.py            nvcc build at first use + ctypes loading
@@ -6,6 +7,8 @@
   bitserial_matmul.py  AND/popcount matmul from codes (fused pack) or from
                        packed planes (+ plain versions)
   conv2d_fused.py      implicit-im2col bit-serial conv (+ plain version)
+  rwkv_chunk.py        chunked RWKV-6 WKV (+ plain chunked version and
+                       the sequential scan)
   ops.py               public wrappers and launch counters
 
 The submodules are imported by name (``from repro_torch.kernels import

@@ -22,7 +22,8 @@ import subprocess
 import time
 from pathlib import Path
 
-KERNELS = ("bitplane_pack", "bitserial_matmul", "conv2d_fused")
+KERNELS = ("bitplane_pack", "bitserial_matmul", "conv2d_fused",
+           "wkv_chunked")
 
 _HERE = Path(__file__).resolve().parent
 SRC_DIR = _HERE / "csrc"

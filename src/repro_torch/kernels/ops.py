@@ -10,7 +10,8 @@ activation codes are sliced and packed inside the matmul kernel.
 ``bitserial_matmul_packed`` takes activation planes packed beforehand
 (``pack_planes``), the ``popcount`` backend's two launches.
 ``conv2d_bitserial`` is two: the channel pack of the padded activation
-codes, then the fused implicit-im2col conv.
+codes, then the fused implicit-im2col conv. ``wkv_chunked`` is the chunked
+RWKV-6 WKV recurrence, one launch per prefill chunk of a layer.
 
 K is zero-padded to a whole word, and C to whole channel words, inside the
 kernels (lanes past the edge read the zero code), which is the zero padding
@@ -23,6 +24,7 @@ import torch
 from . import bitplane_pack as _pack
 from . import bitserial_matmul as _bsm
 from . import conv2d_fused as _conv
+from . import rwkv_chunk as _wkv
 
 # Each kernel's launch counter: (wrapper module, counter attribute).
 _KERNEL_MODULES = {
@@ -30,6 +32,7 @@ _KERNEL_MODULES = {
     "bitserial_matmul_fused": (_bsm, "launches"),
     "bitserial_matmul_packed": (_bsm, "packed_launches"),
     "conv2d_bitserial_fused": (_conv, "launches"),
+    "wkv_chunked": (_wkv, "launches"),
 }
 
 
@@ -86,3 +89,12 @@ def conv2d_bitserial(qx: torch.Tensor, pw: torch.Tensor, *, a_bits: int,
     pa = pa.reshape(a_bits, n * hp, wp, cw)
     return _conv.conv2d_bitserial_fused(pa, pw, n=n, hp=hp, oh=oh, ow=ow,
                                         stride=stride)
+
+
+def wkv_chunked(r, k, v, lw, u, s0, *, chunk: int = 16):
+    """Chunked RWKV-6 WKV -> (y (BH, S, D), s_final (BH, D, D)) float32.
+
+    r, k, v, lw (BH, S, D) float32, ``lw`` the clamped log decay <= 0;
+    u (BH, D); s0 (BH, D, D); S a multiple of ``chunk``.
+    """
+    return _wkv.wkv_chunked(r, k, v, lw, u, s0, chunk)

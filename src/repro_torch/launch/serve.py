@@ -1,25 +1,40 @@
-"""Serving launcher for the port: micro-batched CNN inference.
+"""Serving launcher for the port: LM generation and CNN inference.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \
+      --arch rwkv6-3b --reduced --requests 6 --max-new 16 \
+      [--precision '<8:8>' --backend cuda]
+
+serves an LM architecture (random weights from a seed, the arch's dtype;
+with ``--precision '<W:I>'`` every projection runs the paper's bit-serial
+pipeline in float32) through the continuous-batching ``ServeEngine``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --workload cnn \
       --cnn-model resnet50 --image 224 --requests 16 --precision '<8:8>'
 
-Random images (from a seed) go through the prepacked bit-serial conv path
-in power-of-two micro-batch buckets, on the GPU unless ``--device cpu``.
-A warm run fills the prepack cache and builds the kernels; the timed run
-then measures serving. The lines printed are those of
-``repro.launch.serve --workload cnn``.
+sends random images through the prepacked bit-serial conv path in
+power-of-two micro-batch buckets; a warm run fills the prepack cache and
+builds the kernels, the timed run then measures serving.
+
+Both run on the GPU unless ``--device cpu``, and print the lines of
+``repro.launch.serve`` for the same workload.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
-from repro_torch.core import BACKENDS
-from repro_torch.serving import (MODEL_ZOO, VisionEngine, VisionRequest,
+from repro_torch import disable_tf32
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.core import BACKENDS, PIMQuantConfig
+from repro_torch.models.lm import model as lm
+from repro_torch.serving import (MODEL_ZOO, Request, SamplerConfig,
+                                 ServeEngine, VisionEngine, VisionRequest,
                                  parse_precision)
+from repro_torch.serving.vision import resolve_device
 
 CNN_MODELS = tuple(sorted(MODEL_ZOO))
 
@@ -34,6 +49,7 @@ def serve_cnn(args):
     rng = np.random.default_rng(0)
     imgs = rng.standard_normal(
         (args.requests, args.image, args.image, 3)).astype(np.float32)
+    args.precision = args.precision or "<8:8>"
     precision = None if parse_precision(args.precision) is None \
         else args.precision
     for _ in range(2):   # warm run, then the timed run
@@ -51,16 +67,55 @@ def serve_cnn(args):
           f"precision={args.precision}, backend={args.backend})")
 
 
+def serve_lm(args):
+    """LM workload: continuous-batching generation through ServeEngine."""
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch).model
+    cfg = cfg.reduced() if args.reduced else cfg
+    bits = parse_precision(args.precision)
+    if bits is not None:
+        cfg = dataclasses.replace(cfg, dtype="float32", pim=PIMQuantConfig(
+            w_bits=bits[0], a_bits=bits[1], backend=args.backend))
+    params = lm.cast_params(
+        lm.init(cfg, torch.Generator(device=device).manual_seed(0),
+                device=device), lm.torch_dtype(cfg.dtype))
+    eng = ServeEngine(cfg, params, max_batch=args.max_batch,
+                      max_len=args.max_len,
+                      sampler=SamplerConfig(temperature=args.temperature),
+                      device=device)
+    rng = np.random.default_rng(0)
+    t0 = time.time()
+    for rid in range(args.requests):
+        L = int(rng.integers(4, 17))
+        eng.submit(Request(rid=rid, prompt=rng.integers(
+            0, cfg.vocab, size=L).astype(np.int32),
+            max_new_tokens=args.max_new))
+    done = eng.run()
+    dt = time.time() - t0
+    n_tok = sum(len(c.tokens) for c in done)
+    for c in sorted(done, key=lambda c: c.rid):
+        print(f"req {c.rid}: {len(c.tokens)} tokens -> {c.tokens[:8]}...")
+    print(f"{len(done)} completions, {n_tok} tokens in {dt:.1f}s "
+          f"({n_tok / dt:.1f} tok/s)")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--workload", choices=("cnn",), default="cnn")
+    ap.add_argument("--workload", choices=("lm", "cnn"), default="lm")
+    ap.add_argument("--arch", choices=ARCH_IDS,
+                    help="LM architecture (required for --workload lm)")
+    ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--cnn-model", choices=CNN_MODELS, default="resnet50")
     ap.add_argument("--image", type=int, default=64)
     ap.add_argument("--classes", type=int, default=1000)
-    ap.add_argument("--precision", default="<8:8>",
-                    help="'<W:I>' bit-widths, or 'float' for the fp path")
+    ap.add_argument("--precision", default=None,
+                    help="'<W:I>' bit-widths, or 'float' for the fp path "
+                         "(default: '<8:8>' for cnn, float for lm)")
     ap.add_argument("--backend", default="cuda", choices=BACKENDS,
                     help="Eq. 1 backend: cuda and popcount run the CUDA "
                          "kernels, mxu-plane and int-direct a library "
@@ -68,7 +123,14 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
                          "PyTorch versions")
-    serve_cnn(ap.parse_args(argv))
+    args = ap.parse_args(argv)
+    disable_tf32()
+    if args.workload == "cnn":
+        serve_cnn(args)
+        return
+    if args.arch is None:
+        raise SystemExit("--workload lm requires --arch")
+    serve_lm(args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,338 @@
+"""LM assembly: embed -> block schedule -> head.
+
+The parameter tree is the JAX package's: nested dicts, the arch's
+repeating unit of blocks stacked on a leading (n_reps,) axis under
+``"scan"`` and the remainder layers under ``"rest"``. A Python loop over the
+reps takes the place of ``jax.lax.scan``.
+
+Entry points:
+
+  ``forward(params, cfg, tokens)``             -> (logits, aux)
+  ``prefill(params, cfg, tokens, state)``      -> (last logits, state)
+  ``decode_step(params, cfg, tokens, state)``  -> (logits, state)
+  ``prefill_into_slot(params, cfg, tokens, state, slot, start_pos)``
+
+State updates are in place: ``prefill`` and ``decode_step`` write each
+layer's new carries into the stacked state tensors they were given (and
+return the same dict), so a decode step allocates no second copy of the
+(max_batch, ...) state. Only the ``rwkv`` block kind is ported; the others
+raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.packed import prepack
+from repro_torch.core.pim_layers import pim_linear
+
+from . import cache as C
+from . import rwkv6 as RW
+from .config import ModelConfig
+from .norms import apply_norm, init_norm
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return DTYPES[str(name)]
+
+
+# ---------------------------------------------------------------------------
+# Repeating-unit detection
+# ---------------------------------------------------------------------------
+
+def layer_plan(cfg: ModelConfig) -> tuple[tuple, int, tuple]:
+    """blocks -> (unit, n_reps, remainder) maximizing scanned coverage."""
+    blocks = cfg.blocks
+    best = (blocks[:1], 1, blocks[1:])
+    best_cov = 1
+    for ln in range(1, min(len(blocks), 8) + 1):
+        unit = blocks[:ln]
+        reps = 0
+        while blocks[reps * ln:(reps + 1) * ln] == unit:
+            reps += 1
+        cov = reps * ln
+        if cov > best_cov or (cov == best_cov and ln < len(best[0])):
+            best, best_cov = (unit, reps, blocks[reps * ln:]), cov
+    return best
+
+
+# ---------------------------------------------------------------------------
+# Per-block init / apply
+# ---------------------------------------------------------------------------
+
+def _not_ported(kind: str):
+    return NotImplementedError(
+        f"block kind {kind!r} is not ported yet (ROADMAP.md Queue 1, the LM "
+        "zoo); the port runs 'rwkv'")
+
+
+def init_block(kind: str, cfg: ModelConfig, generator, device=None):
+    if kind != "rwkv":
+        raise _not_ported(kind)
+    d = cfg.d_model
+    return {
+        "norm1": init_norm(cfg.norm, d, device),
+        "time_mix": RW.init_rwkv_block(cfg, generator, device),
+        "norm2": init_norm(cfg.norm, d, device),
+        "channel_mix": RW.init_rwkv_channel_mix(cfg, generator, device),
+    }
+
+
+def apply_block(kind: str, p, cfg: ModelConfig, x, state=None):
+    """Pre-norm residual block. Returns (x, new_state)."""
+    if kind != "rwkv":
+        raise _not_ported(kind)
+    h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
+    y, new_inner = RW.rwkv_time_mix(p["time_mix"], cfg, h, state)
+    x = x + y
+    h2 = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
+    y2, new_inner = RW.rwkv_channel_mix(p["channel_mix"], cfg, h2, new_inner)
+    return x + y2, new_inner
+
+
+# ---------------------------------------------------------------------------
+# Whole-model init, casts and prepack
+# ---------------------------------------------------------------------------
+
+def init(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> dict:
+    """Random parameters from ``generator``, float32 on ``device``.
+
+    The draws are made on the generator's device (a CUDA generator makes a
+    full-width model on the card without a host round trip)."""
+    unit, reps, rest = layer_plan(cfg)
+    params: dict = {}
+    if cfg.embed_inputs:
+        params["embed"] = RW.randn(generator, (cfg.vocab, cfg.d_model),
+                                   cfg.d_model**-0.5, device)
+    stacked = [[init_block(kind, cfg, generator, device) for kind in unit]
+               for _ in range(reps)]
+    params["scan"] = []
+    for i in range(len(unit)):
+        params["scan"].append(_stack([s[i] for s in stacked]))
+        for s in stacked:   # free each rep's copy once it is stacked
+            s[i] = None
+    params["rest"] = [init_block(kind, cfg, generator, device)
+                      for kind in rest]
+    params["final_norm"] = init_norm(cfg.norm, cfg.d_model, device)
+    if not cfg.tie_embeddings:
+        params["head"] = RW.randn(generator, (cfg.d_model, cfg.vocab),
+                                  cfg.d_model**-0.5, device)
+    return params
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def cast_params(params, dtype):
+    """Cast float32 leaves of two or more dimensions to ``dtype``, as the
+    JAX package does (stacked leaves count their rep axis, so a stacked
+    norm scale is cast too; the final norm stays float32)."""
+    def _cast(x):
+        if x.dtype == torch.float32 and x.dim() >= 2:
+            return x.to(dtype)
+        return x
+    return _map(_cast, params)
+
+
+def to_device(params, device):
+    """The tree (float or prepacked) moved to ``device``."""
+    return _map(lambda x: x.to(device), params)
+
+
+# Projection leaves that route through pim_linear — the prepack targets:
+# the rwkv block's projections and the untied head. (The embedding gather
+# is not a GEMM and stays float.) Other block kinds add theirs when ported.
+_PIM_PROJ_KEYS = frozenset({"w_r", "w_k", "w_v", "w_g", "w_o", "head"})
+
+
+def prepack_params(params, cfg):
+    """Quantize + pack every pim_linear projection weight exactly once.
+
+    ``cfg`` is the model's ``PIMQuantConfig`` (None or disabled: the tree
+    comes back as it is). A (K, N) leaf becomes a :class:`PackedWeight`; a
+    stacked (R, K, N) leaf a list of R of them, one per rep, each
+    calibrated on its own rep as the JAX package's ``vmap`` calibrates.
+    Single device only: no mesh and no fault injection here.
+    """
+    if cfg is None or not getattr(cfg, "enabled", False):
+        return params
+
+    def pack_leaf(leaf):
+        leaf = leaf.to(torch.float32)
+        if leaf.dim() == 2:
+            return prepack(leaf, cfg.w_bits)
+        return [prepack(w, cfg.w_bits) for w in leaf]
+
+    def walk(p):
+        if isinstance(p, dict):
+            return {k: (pack_leaf(v)
+                        if (k in _PIM_PROJ_KEYS and isinstance(v, torch.Tensor)
+                            and v.dim() in (2, 3) and v.is_floating_point())
+                        else walk(v))
+                    for k, v in p.items()}
+        if isinstance(p, (list, tuple)):
+            return type(p)(walk(v) for v in p)
+        return p
+
+    return walk(params)
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _rep(tree, r: int):
+    """Rep ``r`` of a stacked block tree: tensors and lists of
+    PackedWeight (one per rep) are indexed alike."""
+    if isinstance(tree, dict):
+        return {k: _rep(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+def _write(dst: dict, src: dict):
+    """Copy a layer's new state into its slice of the stacked state."""
+    for k, v in src.items():
+        dst[k].copy_(v)
+
+
+def _run_blocks(params, cfg: ModelConfig, x, states=None):
+    """Apply the full block schedule; ``states`` (prefill/decode) is
+    updated in place."""
+    unit, reps, rest = layer_plan(cfg)
+    for r in range(reps):
+        for j, kind in enumerate(unit):
+            s = _rep(states["scan"][j], r) if states is not None else None
+            x, ns = apply_block(kind, _rep(params["scan"][j], r), cfg, x, s)
+            if states is not None:
+                _write(s, ns)
+    for i, kind in enumerate(rest):
+        s = states["rest"][i] if states is not None else None
+        x, ns = apply_block(kind, params["rest"][i], cfg, x, s)
+        if states is not None:
+            _write(s, ns)
+    return x
+
+
+def embed_inputs(params, cfg: ModelConfig, tokens):
+    if cfg.embed_inputs:
+        return params["embed"][tokens].to(torch_dtype(cfg.dtype))
+    return tokens.to(torch_dtype(cfg.dtype))  # precomputed frame embeds
+
+
+def lm_head(params, cfg: ModelConfig, x):
+    w = params["embed"].T if cfg.tie_embeddings else params["head"]
+    logits = pim_linear(x, w, cfg=cfg.pim).to(torch.float32)
+    if cfg.logits_softcap:
+        logits = torch.tanh(logits / cfg.logits_softcap) * cfg.logits_softcap
+    return logits
+
+
+def forward(params, cfg: ModelConfig, tokens):
+    """Full-sequence forward. Returns (logits (B, S, V) float32, aux loss);
+    the aux loss is MoE's and 0 here."""
+    x = embed_inputs(params, cfg, tokens)
+    x = _run_blocks(params, cfg, x)
+    x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
+    return lm_head(params, cfg, x), torch.zeros((), device=x.device)
+
+
+def decode_step(params, cfg: ModelConfig, tokens, state):
+    """One decode step. tokens (B, 1) -> (logits (B, 1, V), state), the
+    state updated in place."""
+    x = embed_inputs(params, cfg, tokens)
+    x = _run_blocks(params, cfg, x, state)
+    x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
+    logits = lm_head(params, cfg, x)
+    state["length"] += 1
+    return logits, state
+
+
+def prefill(params, cfg: ModelConfig, tokens, state):
+    """Run a whole prompt through the model, filling the decode state in
+    place. Returns the last token's logits (B, 1, V)."""
+    x = embed_inputs(params, cfg, tokens)
+    x = _run_blocks(params, cfg, x, state)
+    x = apply_norm(cfg.norm, params["final_norm"], x[:, -1:], cfg.norm_eps)
+    logits = lm_head(params, cfg, x)
+    state["length"] += tokens.shape[1]
+    return logits, state
+
+
+def init_state(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+    return C.init_model_state(cfg, batch, max_len, device)
+
+
+# ---------------------------------------------------------------------------
+# Slot-addressed prefill (continuous-batching admission path)
+# ---------------------------------------------------------------------------
+# The decode-state grid puts the batch axis at position 1 for scan-stacked
+# leaves ((n_reps, B, ...)) and position 0 for remainder-layer leaves and
+# ``length``.
+
+def _slot_take(state, slot: int):
+    """A copy of slot ``slot`` of a (max_batch, ...) grid, as a batch-1
+    state."""
+    def take(ax):
+        return lambda t: t.narrow(ax, slot, 1).clone()
+    return {
+        "scan": [_map(take(1), t) for t in state["scan"]],
+        "rest": [_map(take(0), t) for t in state["rest"]],
+        "length": take(0)(state["length"]),
+    }
+
+
+def _slot_put(state, s1, slot: int):
+    """Write a batch-1 state back into slot ``slot`` of the grid, in
+    place."""
+    def put(ax, big, small):
+        for k in big:
+            big[k].narrow(ax, slot, 1).copy_(small[k])
+    for big, small in zip(state["scan"], s1["scan"]):
+        put(1, big, small)
+    for big, small in zip(state["rest"], s1["rest"]):
+        put(0, big, small)
+    state["length"].narrow(0, slot, 1).copy_(s1["length"])
+    return state
+
+
+def prefill_into_slot(params, cfg: ModelConfig, tokens, state, slot: int,
+                      start_pos: int):
+    """Prefill ``tokens`` (1, S) into slot ``slot`` of a decode-state grid.
+
+    The slot's state is copied out, run through :func:`prefill` and written
+    back, so the grid changes only in that slot. Returns (last-token logits
+    (1, 1, V), the grid). Chunked admission calls this once per
+    power-of-two chunk of a prompt, threading ``start_pos`` forward.
+
+    Slot reuse must not leak the previous occupant's state into the new
+    request: recurrent carries (RWKV wkv and token shifts) are
+    position-less, so every leaf of the slot is zeroed on a request's first
+    chunk (``start_pos == 0``); later chunks continue the carried state.
+    """
+    s1 = _slot_take(state, slot)
+    if start_pos == 0:
+        s1 = {"scan": [_map(torch.zero_, t) for t in s1["scan"]],
+              "rest": [_map(torch.zero_, t) for t in s1["rest"]],
+              "length": s1["length"]}
+    s1["length"].fill_(start_pos)
+    logits, s1 = prefill(params, cfg, tokens, s1)
+    return logits, _slot_put(state, s1, slot)
+
+
+__all__ = ["apply_block", "cast_params", "decode_step",
+           "embed_inputs", "forward", "init", "init_block", "init_state",
+           "layer_plan", "lm_head", "prefill", "prefill_into_slot",
+           "prepack_params", "to_device"]

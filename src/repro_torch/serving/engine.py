@@ -1,0 +1,309 @@
+"""Batched LM serving engine: continuous batching over a fixed decode grid,
+on one device.
+
+The engine owns one decode state of shape (max_batch, ...) on the device
+plus a per-slot control block there (last token, eos id, remaining budget,
+live flag), and runs two paths:
+
+  * **Admission.** The prompt is split into its binary decomposition of
+    power-of-two chunks (13 -> 8 + 4 + 1) and each chunk prefills into
+    slot ``i`` through ``prefill_into_slot``. Chunking (instead of
+    right-padding to a bucket) keeps recurrent states exact: the carry
+    threads across chunks and no pad token enters the recurrence. On an
+    ``rwkv`` model every chunk of 16 or more tokens runs the chunked WKV
+    kernel. The first token is sampled on the device and read once.
+  * **``decode_n``.** Up to ``drain_steps`` fused decode + sample steps per
+    dispatch when no admissions are pending. The control block stays on
+    the device; only the (n, B) sampled tokens and done flags cross to the
+    host, in one copy per dispatch, never the (B, vocab) logits. Dead slots
+    decode into their frozen position; the grid never reshapes.
+
+Continuous batching: when a sequence finishes (EOS or budget), its slot is
+released and the next queued request prefills into it. While the queue is
+non-empty the engine decodes one step at a time so a freed slot is
+refilled at the next token boundary; once it drains, multi-step dispatches.
+
+Memory: the decode state and the control block are updated in place (a
+decode step writes each layer's new carries into the grid), so serving
+holds one copy of the state. When ``cfg.pim`` is enabled the constructor
+prepacks every projection weight once (the paper's program-subarrays-once
+step) and prefill/decode never re-quantize a weight.
+
+Later slices (``ROADMAP.md`` Queue 1): mesh serving, pipelined decode,
+the fault model and watchdog, the autotuner, snapshot/restore, redeploy
+and the gateway. The constructor raises ``NotImplementedError`` for each.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import warnings
+
+import numpy as np
+import torch
+
+from repro_torch import disable_tf32
+from repro_torch.models.lm.config import ModelConfig
+from repro_torch.models.lm.model import (decode_step, init_state,
+                                         prefill_into_slot, prepack_params,
+                                         to_device)
+
+from .sampler import SamplerConfig, sample_per_slot
+from .vision import resolve_device
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray              # (L,) int32
+    max_new_tokens: int = 32
+    eos_id: int = -1                # -1: never
+
+
+@dataclasses.dataclass
+class Completion:
+    rid: int
+    tokens: list
+
+
+def _pow2_chunks(n: int) -> list[int]:
+    """Binary decomposition, largest first: 13 -> [8, 4, 1]."""
+    out = []
+    b = 1 << max(n.bit_length() - 1, 0)
+    while n:
+        if n >= b:
+            out.append(b)
+            n -= b
+        b >>= 1
+    return out
+
+
+# Constructor options of the JAX engine that later slices port.
+_LATER = {
+    "mesh": "mesh serving",
+    "faults": "faults and the watchdog",
+    "watchdog": "faults and the watchdog",
+    "fault_injector": "faults and the watchdog",
+    "keep_masters": "redeploy and the gateway",
+    "autotune": "the autotuner",
+    "tuning_cache": "the autotuner",
+    "pipeline_stages": "pipelined decode with mesh serving",
+    "pipeline_microbatches": "pipelined decode with mesh serving",
+}
+
+
+class ServeEngine:
+    def __init__(self, cfg: ModelConfig, params, max_batch: int = 8,
+                 max_len: int = 512, sampler: SamplerConfig | None = None,
+                 seed: int = 0, drain_steps: int = 8, device="cuda",
+                 mesh=None, faults=None, watchdog=None, fault_injector=None,
+                 keep_masters: bool = False, autotune: str = "off",
+                 tuning_cache=None, pipeline_stages: int = 1,
+                 pipeline_microbatches: int | None = None):
+        asked = dict(mesh=mesh is not None, faults=faults is not None,
+                     watchdog=watchdog is not None,
+                     fault_injector=fault_injector is not None,
+                     keep_masters=keep_masters, autotune=autotune != "off",
+                     tuning_cache=tuning_cache is not None,
+                     pipeline_stages=pipeline_stages != 1,
+                     pipeline_microbatches=pipeline_microbatches is not None)
+        for name, on in asked.items():
+            if on:
+                raise NotImplementedError(
+                    f"ServeEngine({name}=...) is not ported yet: it comes "
+                    f"with {_LATER[name]} (ROADMAP.md Queue 1)")
+        self.device = resolve_device(device)
+        disable_tf32()
+        self.cfg = cfg
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.sampler = sampler or SamplerConfig()
+        self.drain_steps = max(1, drain_steps)
+        with torch.no_grad():
+            self.params = prepack_params(to_device(params, self.device),
+                                         cfg.pim)
+        self.state = init_state(cfg, max_batch, max_len, self.device)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+        def zeros(dtype):
+            return torch.zeros((max_batch,), dtype=dtype, device=self.device)
+
+        self.ctrl = {"last_tok": zeros(torch.int32),
+                     "eos": torch.full((max_batch,), -1, dtype=torch.int32,
+                                       device=self.device),
+                     "remaining": zeros(torch.int32),
+                     "live": zeros(torch.bool)}
+        # Host bookkeeping mirrors (admission decisions + output assembly).
+        self.slot_req: list = [None] * max_batch
+        self.slot_out: list = [[] for _ in range(max_batch)]
+        self.slot_remaining = np.zeros(max_batch, np.int32)
+        self.queue: collections.deque = collections.deque()
+        self.done: list = []
+        self._cancelled: set = set()   # rids to release at the next boundary
+
+    # -- device paths --------------------------------------------------------
+
+    def _admit_ctrl(self, logits, slot: int, eos_id: int, n_new: int):
+        """Sample the first token and write slot ``slot``'s control
+        entries, on the device."""
+        tok = sample_per_slot(logits[:, -1], self.sampler, self.generator)
+        c, s = self.ctrl, slice(slot, slot + 1)
+        c["last_tok"][s] = tok
+        c["eos"][s] = eos_id
+        c["remaining"][s] = n_new - 1
+        c["live"][s] = (tok != eos_id) & (n_new > 1)
+        return tok
+
+    def _decode_n(self, n: int):
+        """``n`` fused decode + sample steps. Returns the (n, B) tokens and
+        done flags, read to the host in one copy."""
+        c = self.ctrl
+        out = []
+        for _ in range(n):
+            length = self.state["length"].clone()
+            logits, self.state = decode_step(self.params, self.cfg,
+                                             c["last_tok"][:, None],
+                                             self.state)
+            nxt = sample_per_slot(logits[:, 0], self.sampler, self.generator)
+            nxt = torch.where(c["live"], nxt, c["last_tok"])
+            c["remaining"] -= c["live"].to(torch.int32)
+            done = c["live"] & ((nxt == c["eos"]) | (c["remaining"] <= 0))
+            # Dead slots do not advance.
+            self.state["length"] = torch.where(c["live"],
+                                               self.state["length"], length)
+            c["live"] &= ~done
+            c["last_tok"] = nxt
+            out.append(torch.stack([nxt, done.to(torch.int32)]))
+        out = torch.stack(out).cpu().numpy()          # (n, 2, B)
+        return out[:, 0], out[:, 1].astype(bool)
+
+    # -- public API ---------------------------------------------------------
+
+    def validate(self, prompt, max_new_tokens: int):
+        """Admission-time request validation: a prompt that leaves no room
+        for ``max_new_tokens`` in the (max_batch, max_len) grid, the empty
+        prompt (no logits to sample the first token from) and a
+        non-positive budget are refused."""
+        n = len(prompt)
+        if n == 0:
+            raise ValueError("empty prompt: nothing to prefill, no final "
+                             "logits to sample the first token from")
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens={max_new_tokens} must be >= 1")
+        if n + max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prompt ({n} tokens) + max_new_tokens ({max_new_tokens}) "
+                f"exceeds the decode grid (max_len={self.max_len})")
+
+    def submit(self, req: Request):
+        self.validate(req.prompt, req.max_new_tokens)
+        self.queue.append(req)
+
+    def cancel(self, rid: int) -> str | None:
+        """Cancel a request. Queued: removed immediately. Mid-generation:
+        its slot is released at the next token boundary through the same
+        slot-free path a natural completion takes, and the next occupant's
+        prefill zeroes the recurrent carries. Returns "queued" / "active"
+        for what was cancelled, None if the rid is unknown."""
+        for i, r in enumerate(self.queue):
+            if r.rid == rid:
+                del self.queue[i]
+                return "queued"
+        for r in self.slot_req:
+            if r is not None and r.rid == rid:
+                self._cancelled.add(rid)
+                return "active"
+        return None
+
+    def _release_cancelled(self):
+        """Free cancelled slots at a token boundary: clear the host slot and
+        kill the slot's device liveness."""
+        hit = [i for i, r in enumerate(self.slot_req)
+               if r is not None and r.rid in self._cancelled]
+        self._cancelled.clear()
+        for i in hit:
+            self.ctrl["live"][i] = False
+            self.ctrl["remaining"][i] = 0
+            self.slot_req[i] = None
+            self.slot_out[i] = []
+            self.slot_remaining[i] = 0
+
+    def _free_slots(self):
+        return [i for i, r in enumerate(self.slot_req) if r is None]
+
+    def _admit(self):
+        """Prefill queued requests into free slots, chunked power-of-two."""
+        for slot in self._free_slots():
+            if not self.queue:
+                break
+            req = self.queue.popleft()
+            prompt = torch.from_numpy(np.asarray(req.prompt, np.int32)).to(
+                self.device)[None]
+            pos, logits = 0, None
+            for c in _pow2_chunks(prompt.shape[1]):
+                logits, self.state = prefill_into_slot(
+                    self.params, self.cfg, prompt[:, pos:pos + c], self.state,
+                    slot, pos)
+                pos += c
+            first = int(self._admit_ctrl(logits, slot, req.eos_id,
+                                         req.max_new_tokens))
+            self.slot_out[slot] = [first]
+            if req.max_new_tokens <= 1 or first == req.eos_id:
+                self.done.append(Completion(req.rid, self.slot_out[slot]))
+                continue
+            self.slot_req[slot] = req
+            self.slot_remaining[slot] = req.max_new_tokens - 1
+
+    @torch.no_grad()
+    def step(self) -> list:
+        """Admit + decode (one step, or a drain of up to ``drain_steps``
+        fused steps when no admissions are pending); returns completions."""
+        if self._cancelled:
+            self._release_cancelled()
+        self._admit()
+        live = [i for i, r in enumerate(self.slot_req) if r is not None]
+        if not live:
+            return self._drain_done()
+        if self.queue:
+            n = 1   # keep admissions responsive: a slot may free next token
+        else:
+            cap = max(1, min(self.drain_steps,
+                             int(max(self.slot_remaining[i] for i in live))))
+            n = 1 << (cap.bit_length() - 1)
+        toks, dones = self._decode_n(n)
+        for k in range(n):
+            for i in list(live):
+                req = self.slot_req[i]
+                self.slot_out[i].append(int(toks[k, i]))
+                self.slot_remaining[i] -= 1
+                if dones[k, i]:
+                    self.done.append(Completion(req.rid, self.slot_out[i]))
+                    self.slot_req[i] = None
+                    live.remove(i)
+        return self._drain_done()
+
+    def _drain_done(self):
+        out, self.done = self.done, []
+        return out
+
+    def run(self, max_steps: int = 10_000, strict: bool = False) -> list:
+        """Drive until queue + slots drain; returns all completions.
+
+        Exhausting ``max_steps`` with work still in flight warns with the
+        stranded requests, or raises when ``strict=True``.
+        """
+        out = []
+        for _ in range(max_steps):
+            out.extend(self.step())
+            if not self.queue and all(r is None for r in self.slot_req):
+                return out
+        live = [r.rid for r in self.slot_req if r is not None]
+        queued = [r.rid for r in self.queue]
+        if live or queued:
+            msg = (f"run(max_steps={max_steps}) exited with "
+                   f"{len(live) + len(queued)} stranded request(s): "
+                   f"rids {live} mid-generation, rids {queued} queued")
+            if strict:
+                raise RuntimeError(msg)
+            warnings.warn(msg, RuntimeWarning, stacklevel=2)
+        return out
