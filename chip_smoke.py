@@ -9,22 +9,33 @@ JAX package ``repro``, and fails (non-zero exit, no result line) on any
 failed phase, without a GPU, or outside a checkout.
 
 1. Prints the card's name and power limit; turns TF32 off.
-2. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc``.
+2. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, and
+   checks that kernels 2 and 4 were built onto the int8 tensor cores (IMMA
+   in the library's SASS) without spills.
 3. Holds each of kernels 1-4 against its plain PyTorch version on the
    card with ``torch.equal`` at the shapes ResNet-50, AlexNet and VGG19
    give it at 224 px in a bucket of 8, plus ragged shapes at <2:2>, <4:4>
    and <8:8>; prints one JSON line per shape with the kernel's time, the
    plain version's, a PyTorch library call's where one computes the same P
    exactly, and the least time the card could take for the same P
-   (``bound_ms``), beside the least time of the kernel's own algorithm at
-   the card's popcount rate (``popc_bound_ms``). Then holds the four Eq. 1
-   backends' P equal to each other at AlexNet conv1's im2col shape, kernel
-   2 at rwkv6-3b's projection shapes, and kernel 5 against its plain
-   version at a batch-1 prefill's shapes (40 heads of 64, S = 16, 64,
-   256) and the reference test's sweep. Kernel 2 is held at every
-   projection shape of rwkv6-3b (K x N of 2560 x 2560, 2560 x 8960, 8960 x
-   2560 and the head's 2560 x 65536) at prefill M = 256, 16 and 1 and at
-   decode M = 4, and at K = N = 2560 for each other power-of-two chunk.
+   (``bound_ms``), beside, for kernel 3, the least time of the
+   kernel's own algorithm at the card's popcount rate (``popc_bound_ms``).
+   ``kernel_ms`` and ``library_ms`` are CUDA events around 20 and 5
+   back-to-back calls (the median of five rounds), so they hold the host's
+   launch time where that is the longer; ``kernel_device_ms`` and
+   ``library_device_ms`` time the same calls queued behind a spin of the
+   card, the device alone; ``kernel_host_ms`` is the host's median time
+   to issue one kernel call.
+   Kernels 2 and 4 are held at every row of ``FUSED_ROWS`` and
+   ``PACKED_ROWS``: every projection shape of rwkv6-3b (K x N of 2560 x
+   2560, 2560 x 8960, 8960 x 2560 and the head's 2560 x 65536) at prefill
+   M = 256, 16 and 1 and at decode M = 4, K = N = 2560 for each other
+   power-of-two chunk, the edges of their launch plan (each row prints
+   its tile and K splits), and ``WRAP_ROW`` (all codes 255, P past 2^31).
+   Then holds the four Eq. 1 backends' P equal to each other at AlexNet
+   conv1's im2col shape, and kernel 5 against its plain version at a
+   batch-1 prefill's shapes (40 heads of 64, S = 16, 64, 256) and the
+   reference test's sweep.
 4. Serves 12 requests (buckets 8 + 4) through ``VisionEngine`` with
    ResNet-50 (random weights from a seed, 1000 classes, 224 px, <8:8>,
    backend "cuda") twice, a warm run and a timed run, and checks that every
@@ -72,6 +83,7 @@ path for kernel 5), and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -85,14 +97,59 @@ SRC = ROOT / "src"
 # operations. Eq. 1's P is a product of codes of at most 8 bits, so the
 # int8 rate bounds the function at every precision the slice serves, and
 # ``bound_ms`` is the larger of its operations' and its bytes' time.
-# ``popc_bound_ms`` is the bit-serial algorithm's own floor, a secondary
-# number: its AND+POPC pairs at 16 __popc per clock per SM (CUDA C++
+# ``popc_bound_ms`` is kernel 3's bit-serial algorithm's own floor, a
+# secondary number: its AND+POPC pairs at 16 __popc per clock per SM (CUDA C++
 # Programming Guide, arithmetic instruction throughput table, compute
 # capability 9.0) times the SM count and the card's maximum SM clock.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 FP32_FLOPS_PER_S = 67e12      # float32 outside the tensor cores
 POPC_PER_CLOCK_PER_SM = 16
+
+# rwkv6-3b serving: decode slots, and the longest prompt (512) plus 32 new
+# tokens.
+LM_MAX_BATCH = 4
+LM_MAX_LEN = 544
+
+# Rows (M, K, N, w_bits, a_bits, timed) of kernel 2 (fused) and kernel 4
+# (packed): the shapes the served paths give them, then the edges of the
+# launch plan (kernels/bitserial_matmul.py::_plan): M around the 16- and
+# 64-row tiles at K = N = 2560, K off every multiple of 32 and 256, N off
+# the tiles, and every bit width, a_bits != w_bits among them.
+MATMUL_EDGES = [
+    *[(m, 2560, 2560, 8, 8, False) for m in (1, 5, 15, 16, 17, 63, 65)],
+    *[(m, k, n, 8, 8, False) for k in (363, 4000, 70)
+      for m, n in ((8, 1000), (77, 96))],
+    *[(m, 2560, n, 8, 8, False) for n in (1000, 96, 8) for m in (8, 65)],
+    *[(37, 70, 131, b, b, False) for b in range(1, 9)],
+    (37, 70, 131, 5, 3, False), (20, 300, 40, 2, 7, False)]
+FUSED_ROWS = [
+    (8 * 56 * 56, 256, 64, 8, 8, True),   # ResNet-50 s0 1x1, a bucket of 8
+    (8, 2048, 1000, 8, 8, True),          # ResNet-50 head
+    (8, 25088, 4096, 8, 8, True),         # VGG19 fc1
+    # rwkv6-3b: prefill runs M = each power-of-two chunk (256 down to 1),
+    # decode M = LM_MAX_BATCH; K x N is 2560 x 2560 (time mix, channel-mix
+    # w_r), 2560 x 8960 (channel-mix w_k), 8960 x 2560 (w_v), 2560 x 65536
+    # (the head, M = 1 in prefill).
+    *[(m, k, n, 8, 8, True) for m in (256, 16, LM_MAX_BATCH)
+      for k, n in ((2560, 2560), (2560, 8960), (8960, 2560))],
+    (1, 2560, 65536, 8, 8, True), (LM_MAX_BATCH, 2560, 65536, 8, 8, True),
+    *[(m, 2560, 2560, 8, 8, False) for m in (128, 64, 32, 8, 2, 1)],
+    *MATMUL_EDGES]
+PACKED_ROWS = [
+    # AlexNet on "popcount", a bucket of 8: the convs' im2col GEMMs and the
+    # FC layers.
+    (8 * 55 * 55, 363, 96, 8, 8, True), (8 * 27 * 27, 2400, 256, 8, 8, True),
+    (8 * 13 * 13, 2304, 384, 8, 8, True), (8 * 13 * 13, 3456, 384, 8, 8, True),
+    (8 * 13 * 13, 3456, 256, 8, 8, True), (8, 9216, 4096, 8, 8, True),
+    (8, 4096, 4096, 8, 8, True), (8, 4096, 1000, 8, 8, True),
+    # The Pallas bn % 128 != 0 regression shapes, and KW = 125.
+    (8, 64, 192, 4, 4, True), (8, 64, 320, 4, 4, True),
+    *[(8, 4000, 1000, b, b, b == 8) for b in (2, 4, 8)],
+    *MATMUL_EDGES]
+# (M, K, N) with every code 255 at <8:8>: P = 65,025 * K passes 2^31, and K
+# passes one 32,768-K slab.
+WRAP_ROW = (8, 40000, 64)
 
 KERNEL_INFO = {
     "bitplane_pack": dict(
@@ -135,14 +192,49 @@ def nvidia_smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def timed_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, after one warm call."""
+def timed_ms(fn, reps: int, rounds: int = 5) -> tuple:
+    """Ms of ``fn`` a call, after one warm call: the median over ``rounds``
+    rounds of the mean between two CUDA events around ``reps`` back-to-back
+    calls (so the host's time to launch a call where that is longer than
+    the card's to run it), and the median of the host's time to issue one
+    of those calls."""
+    import numpy as np
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    events, host = [], []
+    for _ in range(rounds):
+        start.record()
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            host.append(time.perf_counter() - t)
+        end.record()
+        torch.cuda.synchronize()
+        events.append(start.elapsed_time(end) / reps)
+    return float(np.median(events)), float(np.median(host)) * 1e3
+
+
+def device_ms(fn, reps: int, clock_hz: float) -> float:
+    """Mean device ms of ``fn`` over ``reps`` back-to-back calls between two
+    CUDA events, after one warm call, with the calls queued up behind a
+    spin of the card (``torch.cuda._sleep``, ``clock_hz`` the SM clock) as
+    long as twice the host's time to issue them all, so that the events
+    time the card's runs without the host's launch gaps."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    fn()
+    launch_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int((2 * reps * launch_s + 1e-3) * clock_hz))
     start.record()
     for _ in range(reps):
         fn()
@@ -154,9 +246,10 @@ def timed_ms(fn, reps: int) -> float:
 class KernelChecks:
     """Kernel-vs-plain comparisons; one JSON line per (kernel, shape)."""
 
-    def __init__(self, torch, popc_per_s: float):
+    def __init__(self, torch, popc_per_s: float, clock_hz: float):
         self.torch = torch
         self.popc_per_s = popc_per_s
+        self.clock_hz = clock_hz
         self.gen = torch.Generator(device="cuda").manual_seed(0)
         self.rows = []
 
@@ -171,7 +264,7 @@ class KernelChecks:
                                   device="cuda", dtype=self.torch.int32)
 
     def _record(self, name, shape, bits, got, want, kernel_fn, plain_fn,
-                library_fn, nbytes, macs, popcs, timing):
+                library_fn, nbytes, macs, popcs, timing, plan=None):
         torch = self.torch
         torch.cuda.synchronize()
         if got.shape != want.shape or not torch.equal(got, want):
@@ -180,13 +273,24 @@ class KernelChecks:
             raise AssertionError(f"{name} {shape} {bits}: kernel != plain "
                                  f"(max |diff| {diff})")
         row = dict(kernel=name, shape=shape, bits=bits, max_abs_err=0)
+        if plan is not None:
+            from repro_torch.kernels import bitserial_matmul as km
+
+            row["plan"] = dict(variant=plan.variant,
+                               tile=km.TILES[plan.variant][:2],
+                               split_words=plan.split_words,
+                               splits=plan.splits)
         if timing:
             bound_ms, bound_by = self._bound(nbytes, macs)
+            kernel_ms, kernel_host_ms = timed_ms(kernel_fn, 20)
             row.update(
-                kernel_ms=timed_ms(kernel_fn, 20),
-                plain_ms=timed_ms(plain_fn, 2),
+                kernel_ms=kernel_ms, kernel_host_ms=kernel_host_ms,
+                kernel_device_ms=device_ms(kernel_fn, 20, self.clock_hz),
+                plain_ms=timed_ms(plain_fn, 2, rounds=1)[0],
                 library_ms=None if library_fn is None
-                else timed_ms(library_fn, 5),
+                else timed_ms(library_fn, 5)[0],
+                library_device_ms=None if library_fn is None
+                else device_ms(library_fn, 5, self.clock_hz),
                 bound_ms=bound_ms, bound_by=bound_by,
                 popc_bound_ms=popcs / self.popc_per_s * 1e3 if popcs
                 else None)
@@ -224,7 +328,7 @@ class KernelChecks:
             lambda: km.bitserial_matmul_fused_plain(qa, pw.planes, ab, wb),
             lambda: torch.matmul(a64, w64),
             nbytes=4 * m * k + 4 * wb * n * kw + 4 * m * n, macs=m * n * k,
-            popcs=m * n * kw * ab * wb, timing=timing)
+            popcs=0, timing=timing, plan=self._plan(m, n, kw))
 
     def packed(self, m, k, n, wb, ab, timing=True):
         torch = self.torch
@@ -246,7 +350,41 @@ class KernelChecks:
             lambda: km.packed_matmul_plain(pa, pw.planes),
             lambda: torch.matmul(a64, w64),
             nbytes=4 * ab * m * kw + 4 * wb * n * kw + 4 * m * n,
-            macs=m * n * k, popcs=m * n * kw * ab * wb, timing=timing)
+            macs=m * n * k, popcs=0, timing=timing, plan=self._plan(m, n, kw))
+
+    def _plan(self, m, n, kw):
+        from repro_torch.kernels import bitserial_matmul as km
+
+        return km._plan(m, n, kw, km._sm_count(self.torch.device("cuda", 0)))
+
+    def wrap(self, m, k, n):
+        """Every code 255 at <8:8> through both entries: each equals its
+        plain version, and both equal 65,025 * K wrapped mod 2^32 like the
+        reference's int32."""
+        torch = self.torch
+        from repro_torch.kernels import bitplane_pack as kp
+        from repro_torch.kernels import bitserial_matmul as km
+
+        qa = torch.full((m, k), 255, dtype=torch.int32, device="cuda")
+        pw = kp.bitplane_pack_plain(
+            torch.full((n, k), 255, dtype=torch.int32, device="cuda"), 8)
+        pa = kp.bitplane_pack_plain(qa, 8)
+        p = 65025 * k % 2**32
+        want = torch.full((m, n), p - 2**32 * (p >= 2**31), dtype=torch.int32,
+                          device="cuda")
+        plain = (km.bitserial_matmul_fused_plain(qa, pw, 8, 8),
+                 km.packed_matmul_plain(pa, pw))
+        if not all(torch.equal(x, want) for x in plain):
+            raise AssertionError(f"plain versions do not wrap to {want[0, 0]}")
+        kw = pw.shape[-1]
+        for name, got, ref in (
+                ("bitserial_matmul_fused",
+                 km.bitserial_matmul_fused(qa, pw, 8, 8), plain[0]),
+                ("bitserial_matmul_packed",
+                 km.bitserial_matmul_packed(pa, pw, 8, 8), plain[1])):
+            self._record(name, dict(M=m, K=k, N=n, codes=255), "<8:8>", got,
+                         ref, None, None, None, 0, 0, 0, timing=False,
+                         plan=self._plan(m, n, kw))
 
     def conv(self, n, h, c, o, ks, stride, pad, wb, ab, timing=True):
         torch = self.torch
@@ -316,15 +454,38 @@ class KernelChecks:
             macs = bh * n_chunks * (chunk * (chunk - 1) * d
                                     + 2 * chunk * d * d + chunk * d)
             bound_ms, bound_by = self._bound(nbytes, macs, FP32_FLOPS_PER_S)
+            kernel_ms, kernel_host_ms = timed_ms(
+                lambda: kw.wkv_chunked(*a, chunk=chunk), 20)
             row.update(
-                kernel_ms=timed_ms(lambda: kw.wkv_chunked(*a, chunk=chunk),
-                                   20),
+                kernel_ms=kernel_ms, kernel_host_ms=kernel_host_ms,
+                kernel_device_ms=device_ms(
+                    lambda: kw.wkv_chunked(*a, chunk=chunk), 20,
+                    self.clock_hz),
                 plain_ms=timed_ms(lambda: kw.wkv_chunked_plain(*a, chunk),
-                                  2),
-                library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
-                popc_bound_ms=None)
+                                  2, rounds=1)[0],
+                library_ms=None, library_device_ms=None, bound_ms=bound_ms,
+                bound_by=bound_by, popc_bound_ms=None)
         print(json.dumps(row), flush=True)
         self.rows.append(row)
+
+
+def check_matmul_build(build) -> None:
+    """Kernels 2 and 4 run on the int8 tensor cores without spills: the
+    library's SASS holds IMMA instructions (``cuobjdump``, beside ``nvcc``)
+    and ``ptxas -v`` reports no spilled bytes in the build of that same
+    library (its log carries the library's digest in its name)."""
+    log = build.log_path("bitserial_matmul").read_text()
+    spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", log))
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(build.library_path("bitserial_matmul"))],
+        check=True, capture_output=True, text=True, timeout=300).stdout
+    imma = len(re.findall(r"\bIMMA\.", sass))
+    print(json.dumps(dict(bitserial_matmul_imma_instructions=imma,
+                          bitserial_matmul_spill_bytes=spills)), flush=True)
+    if not imma or spills:
+        raise AssertionError(f"bitserial_matmul: {imma} IMMA instructions, "
+                             f"{spills} spilled bytes")
 
 
 def profile_call(torch, fn) -> dict:
@@ -400,7 +561,8 @@ def summary(rows, name, launches, headline):
                 launches=launches,
                 max_abs_err=max(r["max_abs_err"] for r in rows
                                 if r["kernel"] == name),
-                ms=row["kernel_ms"], plain_ms=row["plain_ms"],
+                ms=row["kernel_ms"], device_ms=row["kernel_device_ms"],
+                plain_ms=row["plain_ms"],
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                 library_ms=row["library_ms"],
                 popc_bound_ms=row["popc_bound_ms"], shape=headline)
@@ -500,9 +662,6 @@ def gpu_vs_cpu(torch, np, module, model, backend, image):
 # Kernels each served rwkv6-3b path must launch.
 LM_PATH_KERNELS = {"bf16": ("wkv_chunked",),
                    "<8:8> cuda": ("wkv_chunked", "bitserial_matmul_fused")}
-LM_MAX_BATCH = 4
-LM_MAX_LEN = 544      # the longest prompt, 512, and 32 new tokens
-
 
 def lm_prompts(np, vocab: int) -> list:
     """Eight prompts of 64-512 tokens from numpy seed 0."""
@@ -850,10 +1009,11 @@ def main() -> int:
               f"(per nvcc: { {k: round(v, 1) for k, v in build_s.items()} })",
               flush=True)
         for name in _build.KERNELS:
-            log = _build.BUILD_DIR / f"{name}.log"
+            log = _build.log_path(name)
             if log.exists():
                 print(f"--- nvcc {name} ---\n{log.read_text().strip()}",
                       flush=True)
+        check_matmul_build(_build)
 
     # -- 3. kernels against their plain versions -----------------------------
     props = torch.cuda.get_device_properties(0)
@@ -864,7 +1024,7 @@ def main() -> int:
           f"{INT8_OPS_PER_S:.4g} op/s; popcount {props.multi_processor_count} "
           f"SMs at {clock_mhz:.0f} MHz -> {popc_per_s:.4g} popc/s",
           flush=True)
-    kc = KernelChecks(torch, popc_per_s)
+    kc = KernelChecks(torch, popc_per_s, clock_mhz * 1e6)
     with phase("kernels"):
         # ResNet-50 shapes at 224 px, bucket of 8, <8:8>.
         kc.pack(8 * 230 * 230, 3, 8)          # stem input, C=3 -> one word
@@ -873,53 +1033,32 @@ def main() -> int:
         kc.conv(8, 224, 3, 64, 7, 2, 3, 8, 8)     # stem 7x7/2
         kc.conv(8, 56, 64, 64, 3, 1, 1, 8, 8)     # s0 3x3
         kc.conv(8, 56, 128, 128, 3, 2, 1, 8, 8)   # s1b0.c2 3x3/2
-        kc.matmul(8 * 56 * 56, 256, 64, 8, 8)     # s0 1x1 (c1 of s0b1)
-        kc.matmul(8, 2048, 1000, 8, 8)            # head
         # AlexNet: its convs on "cuda", its im2col GEMMs on "popcount".
         kc.conv(8, 224, 3, 96, 11, 4, 2, 8, 8)    # conv1 11x11/4
         kc.conv(8, 27, 96, 256, 5, 1, 2, 8, 8)    # conv2 5x5
-        kc.packed(8 * 55 * 55, 363, 96, 8, 8)     # conv1 im2col
-        kc.packed(8 * 27 * 27, 2400, 256, 8, 8)   # conv2 im2col
-        kc.packed(8 * 13 * 13, 2304, 384, 8, 8)   # conv3 im2col
-        kc.packed(8 * 13 * 13, 3456, 384, 8, 8)   # conv4 im2col
-        kc.packed(8 * 13 * 13, 3456, 256, 8, 8)   # conv5 im2col
-        kc.packed(8, 9216, 4096, 8, 8)            # fc1
-        kc.packed(8, 4096, 4096, 8, 8)            # fc2
-        kc.packed(8, 4096, 1000, 8, 8)            # head
-        kc.packed(8, 64, 192, 4, 4)               # the Pallas bn % 128 != 0
-        kc.packed(8, 64, 320, 4, 4)               # regression shapes
         # VGG19 on "cuda": its first conv, a C=O=512 conv at 28 and at 14
         # px, and fc1.
         kc.conv(8, 224, 3, 64, 3, 1, 1, 8, 8)     # conv1_1
         kc.conv(8, 28, 512, 512, 3, 1, 1, 8, 8)   # conv4_2
         kc.conv(8, 14, 512, 512, 3, 1, 1, 8, 8)   # conv5_1
-        kc.matmul(8, 25088, 4096, 8, 8)           # fc1
         # Ragged cases at each paper precision.
         for bits in (2, 4, 8):
             kc.pack(37, 70, bits, timing=False)
-            kc.matmul(37, 70, 131, bits, bits, timing=False)
-            kc.packed(37, 70, 131, bits, bits, timing=False)
-            kc.packed(8, 4000, 1000, bits, bits, timing=bits == 8)
             kc.conv(2, 9, 5, 131, 3, 2, 1, bits, bits, timing=False)
         backends_agree(torch, 8 * 55 * 55, 363, 96, 8)   # AlexNet conv1
         # rwkv6-3b: kernel 5 at a batch-1 prefill's shapes (40 heads of 64)
-        # and the reference test's sweep; kernel 2 at the LM's projections.
+        # and the reference test's sweep.
         for s in (16, 64, 256):
             kc.wkv(40, s, 64, 16)
         for bh, s, d, chunk in ((2, 32, 8, 8), (6, 64, 16, 16),
                                 (1, 48, 32, 16), (4, 128, 16, 32)):
             kc.wkv(bh, s, d, chunk, timing=False)
-        # Prefill runs M = each power-of-two chunk (256 down to 1), decode M
-        # = LM_MAX_BATCH; K x N is 2560 x 2560 (time mix, channel-mix w_r),
-        # 2560 x 8960 (channel-mix w_k), 8960 x 2560 (w_v), 2560 x 65536
-        # (the head, M = 1 in prefill).
-        for m in (256, 16, LM_MAX_BATCH):
-            for k, n in ((2560, 2560), (2560, 8960), (8960, 2560)):
-                kc.matmul(m, k, n, 8, 8)
-        kc.matmul(1, 2560, 65536, 8, 8)               # the head in prefill
-        kc.matmul(LM_MAX_BATCH, 2560, 65536, 8, 8)    # the head in decode
-        for m in (128, 64, 32, 8, 2, 1):
-            kc.matmul(m, 2560, 2560, 8, 8, timing=False)
+        # Kernels 2 and 4: the served shapes, the plan's edges, the wrap.
+        for m, k, n, wb, ab, timing in FUSED_ROWS:
+            kc.matmul(m, k, n, wb, ab, timing=timing)
+        for m, k, n, wb, ab, timing in PACKED_ROWS:
+            kc.packed(m, k, n, wb, ab, timing=timing)
+        kc.wrap(*WRAP_ROW)
 
     imgs = np.random.default_rng(0).standard_normal(
         (12, 224, 224, 3)).astype(np.float32)

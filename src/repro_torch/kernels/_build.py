@@ -9,8 +9,9 @@ edited source is rebuilt and a stale library is never loaded.
 
 :func:`build` starts one ``nvcc`` per source, all at once, and waits for
 them together. Each build's compiler output (with ``-Xptxas -v``: registers,
-shared memory and spills per kernel) is kept beside its library as
-``<name>.log``.
+shared memory and spills per kernel) is kept beside its library under the
+library's name with ``.log`` (:func:`log_path`), so a log always belongs to
+the library it names.
 """
 from __future__ import annotations
 
@@ -60,6 +61,11 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def log_path(name: str) -> Path:
+    """The compiler's output of the build of :func:`library_path`."""
+    return library_path(name).with_suffix(".log")
+
+
 def build(names=KERNELS) -> dict:
     """Compile every named kernel that has no current library, in parallel.
 
@@ -76,7 +82,7 @@ def build(names=KERNELS) -> dict:
     try:
         for name in todo:
             tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
-            with open(BUILD_DIR / f"{name}.log", "w") as log:
+            with open(log_path(name), "w") as log:
                 proc = subprocess.Popen(
                     [nvcc, *NVCC_FLAGS, "-o", str(tmp),
                      str(SRC_DIR / f"{name}.cu")],
@@ -89,7 +95,7 @@ def build(names=KERNELS) -> dict:
     for name, (rc, tmp, _) in done.items():
         if rc:
             failed.append(f"--- {name} (nvcc rc {rc}) ---\n"
-                          + (BUILD_DIR / f"{name}.log").read_text())
+                          + log_path(name).read_text())
         else:
             os.replace(tmp, library_path(name))
     if failed:

@@ -15,12 +15,15 @@ the codes reads as zero.
 ``bitserial_matmul_packed(pa, pw, a_bits, w_bits)`` takes activation planes
 (a_bits, M, KW) int32 bit patterns, packed beforehand.
 
-A CUDA tensor launches ``csrc/bitserial_matmul.cu``; a CPU tensor runs
+A CUDA tensor launches ``csrc/bitserial_matmul.cu`` (u8 codes on the int8
+tensor cores) with the launch plan of :func:`_plan`; a CPU tensor runs
 :func:`bitserial_matmul_fused_plain` or :func:`packed_matmul_plain`.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -35,11 +38,53 @@ packed_launches = 0   # bitserial_matmul_packed
 _PLAIN_CHUNK = 1 << 22
 
 _ARGTYPES = {
-    "repro_bitserial_matmul_fused": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+    "repro_bitserial_matmul_fused": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
     + [ctypes.c_void_p],
     "repro_bitserial_matmul_packed": [ctypes.c_void_p] * 3
-    + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    "repro_bitserial_matmul_tile": [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
 }
+
+# The kernel's tiles by variant (its number in the C entry points): rows,
+# columns, words of K a pipeline stage. The C library reports its own
+# (``repro_bitserial_matmul_tile``); the first launch holds them equal.
+SMALL, LARGE = 0, 1
+TILES = ((16, 128, 4), (64, 128, 4))
+SMALL_M = 16          # M up to this runs the 16-row tile
+# Words of K one split may sum: 32,768 K, so its s32 sum of u8 products is
+# exact (255^2 * 32,768 < 2^31).
+SLAB_WORDS = 1024
+
+
+class Plan(NamedTuple):
+    """How one product is launched: the tile (``SMALL`` or ``LARGE``, an
+    index of ``TILES``), and K cut into ``splits`` ranges of ``split_words``
+    words (the last one shorter), each summed by its own blocks and added
+    to the output with uint32 atomics when ``splits`` > 1."""
+    variant: int
+    split_words: int
+    splits: int
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(m: int, n: int, kw: int, sms: int) -> Plan:
+    """The launch plan of an (M, N) product over KW words of K on a card of
+    ``sms`` SMs: the 16-row tile for M <= 16, else the 64-row one; K split
+    across blocks until the grid holds about two blocks per SM (where KW
+    has the steps for it), and always into ranges of at most
+    ``SLAB_WORDS``."""
+    variant = SMALL if m <= SMALL_M else LARGE
+    bm, bn, kstep = TILES[variant]
+    tiles = max(1, -(-m // bm) * -(-n // bn))
+    steps = -(-kw // kstep)
+    splits = max(-(-2 * sms // tiles), -(-steps // (SLAB_WORDS // kstep)))
+    per = max(1, -(-steps // max(1, min(splits, steps, 65535))))
+    return Plan(variant, per * kstep, max(1, -(-steps // per)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def packed_matmul_plain(pa: torch.Tensor, pw: torch.Tensor) -> torch.Tensor:
@@ -89,19 +134,12 @@ def bitserial_matmul_fused(qa: torch.Tensor, pw: torch.Tensor, a_bits: int,
         return bitserial_matmul_fused_plain(qa, pw, a_bits, w_bits)
     if qa.device.type != "cuda":
         raise ValueError(f"no bitserial_matmul for device {qa.device}")
-    if m >= 2**31 or n >= 2**31:
-        raise ValueError(f"({m}, {n}) output exceeds the kernel's int indices")
-    qa, pw = qa.contiguous(), pw.contiguous()
-    out = torch.empty((m, n), dtype=torch.int32, device=qa.device)
-    if out.numel() == 0:
-        return out
-    lib = _build.load("bitserial_matmul", _ARGTYPES)
-    with torch.cuda.device(qa.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.repro_bitserial_matmul_fused(
-            qa.data_ptr(), pw.data_ptr(), out.data_ptr(), m, n, k, kw, a_bits,
-            w_bits, stream)
-    _build.check(lib, rc, "bitserial_matmul_fused")
+    if m >= 2**31 or n >= 2**31 or kw * 32 >= 2**31:
+        raise ValueError(f"({m}, {n}, {kw}) exceeds the kernel's int indices")
+    if m == 0 or n == 0:
+        return torch.empty((m, n), dtype=torch.int32, device=qa.device)
+    out = _launch("fused", qa.contiguous(), pw.contiguous(), m, n, (k,), kw,
+                  a_bits, w_bits)
     global launches
     launches += 1
     return out
@@ -129,17 +167,47 @@ def bitserial_matmul_packed(pa: torch.Tensor, pw: torch.Tensor, a_bits: int,
         raise ValueError(f"no bitserial_matmul_packed for device {pa.device}")
     if m >= 2**31 or n >= 2**31 or kw * 32 >= 2**31:
         raise ValueError(f"({m}, {n}, {kw}) exceeds the kernel's int indices")
-    pa, pw = pa.contiguous(), pw.contiguous()
-    out = torch.empty((m, n), dtype=torch.int32, device=pa.device)
-    if out.numel() == 0:
-        return out
-    lib = _build.load("bitserial_matmul", _ARGTYPES)
-    with torch.cuda.device(pa.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.repro_bitserial_matmul_packed(
-            pa.data_ptr(), pw.data_ptr(), out.data_ptr(), m, n, kw, a_bits,
-            w_bits, stream)
-    _build.check(lib, rc, "bitserial_matmul_packed")
+    if m == 0 or n == 0:
+        return torch.empty((m, n), dtype=torch.int32, device=pa.device)
+    out = _launch("packed", pa.contiguous(), pw.contiguous(), m, n, (), kw,
+                  a_bits, w_bits)
     global packed_launches
     packed_launches += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _entries() -> dict:
+    """The C entry points by entry name, bound once, after holding the
+    library's tiles equal to ``TILES`` and ``SLAB_WORDS``."""
+    lib = _build.load("bitserial_matmul", _ARGTYPES)
+    for variant, tile in enumerate(TILES):
+        got = (ctypes.c_int * 4)()
+        _build.check(lib, lib.repro_bitserial_matmul_tile(variant, got),
+                     "bitserial_matmul_tile")
+        if tuple(got) != (*tile, SLAB_WORDS):
+            raise RuntimeError(f"bitserial_matmul.cu's tile {variant} is "
+                               f"{tuple(got)}, _plan's "
+                               f"{(*tile, SLAB_WORDS)}")
+    return {e: getattr(lib, f"repro_bitserial_matmul_{e}")
+            for e in ("fused", "packed")}
+
+
+def _launch(entry, a, pw, m, n, k, kw, a_bits, w_bits) -> torch.Tensor:
+    """One launch of ``repro_bitserial_matmul_<entry>`` with :func:`_plan`'s
+    plan; ``k`` is ``(K,)`` for the fused entry, ``()`` for the packed. On
+    the split path the C entry zeroes ``out`` on the stream first."""
+    plan = _plan(m, n, kw, _sm_count(a.device))
+    out = torch.empty((m, n), dtype=torch.int32, device=a.device)
+    fn = _entries()[entry]
+    args = (a.data_ptr(), pw.data_ptr(), out.data_ptr(), m, n, *k, kw,
+            a_bits, w_bits, *plan)
+    if a.device.index == torch.cuda.current_device():
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(a.device):
+            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc:
+        _build.check(_build.load("bitserial_matmul", _ARGTYPES), rc,
+                     f"bitserial_matmul_{entry}")
     return out

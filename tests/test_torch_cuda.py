@@ -6,6 +6,8 @@ imports no JAX, so it also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -13,6 +15,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import pim_layers as tpl
 from repro_torch.core.packed import prepack, prepack_conv
+from repro_torch.kernels import _build
 from repro_torch.kernels import bitplane_pack as kp
 from repro_torch.kernels import bitserial_matmul as km
 from repro_torch.kernels import conv2d_fused as kc
@@ -66,6 +69,71 @@ def test_packed_matmul_kernel_equals_plain(gen, m, kw, n, ab, wb):
     pa, pw = words((ab, m, kw)), words((wb, n, kw))
     assert torch.equal(km.bitserial_matmul_packed(pa, pw, ab, wb),
                        km.packed_matmul_plain(pa, pw))
+
+
+def _both_entries(qa, pw, a_bits, w_bits, entry):
+    """(kernel, plain) P of kernel 2 (``fused``) or kernel 4 (``packed``)."""
+    if entry == "fused":
+        return (km.bitserial_matmul_fused(qa, pw, a_bits, w_bits),
+                km.bitserial_matmul_fused_plain(qa, pw, a_bits, w_bits))
+    pa = kp.bitplane_pack_plain(qa, a_bits)
+    return (km.bitserial_matmul_packed(pa, pw, a_bits, w_bits),
+            km.packed_matmul_plain(pa, pw))
+
+
+@pytest.mark.parametrize("m,k,n", [
+    *[(m, 2560, 2560) for m in (1, 5, 15, 16, 17, 63, 65)],
+    (8, 363, 1000), (77, 4000, 96), (8, 70, 1000), (65, 2560, 8)])
+@pytest.mark.parametrize("entry", ["fused", "packed"])
+def test_matmul_kernels_across_tiles_and_k_splits(gen, m, k, n, entry):
+    """Both entries on either side of the 16-row tile, with K split across
+    blocks or not, K and N ragged: equal to the plain versions, and the same
+    in a second launch (the splits' atomic sums are exact)."""
+    qa = _codes(gen, (m, k), 8)
+    pw = prepack(torch.randn((k, n), generator=gen, device="cuda"), 8).planes
+    got, want = _both_entries(qa, pw, 8, 8, entry)
+    assert torch.equal(got, want)
+    assert torch.equal(_both_entries(qa, pw, 8, 8, entry)[0], got)
+
+
+@pytest.mark.parametrize("entry", ["fused", "packed"])
+def test_matmul_kernels_wrap_mod_2_32(gen, entry):
+    """Every code 255 at <8:8>, K = 40,000: P = 65,025 * K passes 2^31 and
+    one 32,768-K slab, and wraps like the reference's int32."""
+    m, k, n = 8, 40000, 64
+    qa = torch.full((m, k), 255, dtype=torch.int32, device="cuda")
+    assert km._plan(m, n, k // 32, km._sm_count(qa.device)).splits > 1
+    pw = kp.bitplane_pack_plain(torch.full((n, k), 255, dtype=torch.int32,
+                                           device="cuda"), 8)
+    got, want = _both_entries(qa, pw, 8, 8, entry)
+    p = 65025 * k % 2**32
+    assert torch.equal(got, want)
+    assert (got == p - 2**32).all()
+
+
+def test_matmul_library_reports_the_plans_tiles(gen):
+    """The C library's tiles and slab are the ones ``_plan`` sizes grids
+    and splits for."""
+    lib = _build.load("bitserial_matmul", km._ARGTYPES)
+    for variant, tile in enumerate(km.TILES):
+        got = (ctypes.c_int * 4)()
+        assert lib.repro_bitserial_matmul_tile(variant, got) == 0
+        assert tuple(got) == (*tile, km.SLAB_WORDS)
+    assert lib.repro_bitserial_matmul_tile(len(km.TILES), got) != 0
+    assert sorted(km._entries()) == ["fused", "packed"]
+
+
+@pytest.mark.parametrize("ab,wb", [(3, 5), (1, 8), (7, 2)])
+def test_fused_kernel_keeps_the_low_a_bits(gen, ab, wb):
+    """Codes wider than a_bits: the kernel keeps their low a_bits bits, the
+    bits the plain version (and the Pallas kernel) slices."""
+    qa = _codes(gen, (20, 300), 8)
+    pw = prepack(torch.randn((300, 40), generator=gen, device="cuda"),
+                 wb).planes
+    got = km.bitserial_matmul_fused(qa, pw, ab, wb)
+    assert torch.equal(got, km.bitserial_matmul_fused_plain(qa, pw, ab, wb))
+    assert torch.equal(got, km.bitserial_matmul_fused(qa & (2**ab - 1), pw,
+                                                      ab, wb))
 
 
 @pytest.mark.parametrize("shape,o,ks,stride,pad", [

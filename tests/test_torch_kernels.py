@@ -182,5 +182,7 @@ def test_kernel_build_runs_one_nvcc_per_source(tmp_path, monkeypatch, ok):
     for name in _build.KERNELS:
         lib = _build.library_path(name)
         assert lib.parent == tmp_path / "build" and lib.exists()
-        assert "ptxas" in (tmp_path / "build" / f"{name}.log").read_text()
+        log = _build.log_path(name)
+        assert log.parent == tmp_path / "build" and log.stem == lib.stem
+        assert "ptxas" in log.read_text()
     assert _build.build() == {}

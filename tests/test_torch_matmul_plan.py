@@ -1,0 +1,100 @@
+"""Kernels 2 and 4's launch plan (``kernels/bitserial_matmul.py::_plan``)
+at every shape ``chip_smoke.py`` holds them at, and the plain versions'
+wrap mod 2^32 against the JAX package once K passes 33,025 (where 255^2 * K
+passes 2^31).
+
+The plan decides what the CUDA kernel sums in s32 and what it adds with
+uint32 atomics, so it is checked here where no card is: the splits tile
+[0, KW) exactly, none sums more than 32,768 K, the grid fills the card
+where K has the words for it, and M <= 16 takes the 16-row tile."""
+import importlib.util
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from _torch_parity import assert_bits_equal, t
+
+from repro.core import bitserial as jbs
+from repro_torch.kernels import bitserial_matmul as km
+from repro_torch.kernels import ops as tops
+
+
+def _smoke():
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_SMOKE = _smoke()
+_SHAPES = sorted({(m, k, n) for m, k, n, *_ in
+                  _SMOKE.FUSED_ROWS + _SMOKE.PACKED_ROWS}
+                 | {_SMOKE.WRAP_ROW})
+# Beside the smoke rows: a product wide enough to need no split for the
+# card's sake, whose K still needs two slabs; K = 0; one word of K.
+_EXTRA = [(4096, 40000, 4096), (8, 0, 64), (1, 32, 1)]
+H100_SMS = 132
+
+
+def _grid(plan, m, n):
+    """Blocks the kernel launches for ``plan``: (M, N) tiles times splits."""
+    bm, bn, _ = km.TILES[plan.variant]
+    return -(-m // bm) * -(-n // bn) * plan.splits
+
+
+@pytest.mark.parametrize("m,k,n", _SHAPES + _EXTRA)
+@pytest.mark.parametrize("sms", [H100_SMS, 114])    # SXM and PCIe H100
+def test_plan_splits_tile_k_within_slabs(m, k, n, sms):
+    kw = -(-k // 32)
+    plan = km._plan(m, n, kw, sms)
+    bm, bn, kstep = km.TILES[plan.variant]
+    # Split s sums words [s * split_words, (s + 1) * split_words) of KW.
+    ranges = [(s * plan.split_words, min(kw, (s + 1) * plan.split_words))
+              for s in range(plan.splits)]
+    assert plan.splits >= 1
+    assert ranges[0][0] == 0 and ranges[-1][1] == kw
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(lo < hi for lo, hi in ranges) or (kw == 0 and plan.splits == 1)
+    assert all(32 * (hi - lo) <= 32768 for lo, hi in ranges)
+    assert plan.split_words % kstep == 0
+    assert plan.split_words <= km.SLAB_WORDS
+    assert plan.variant == (km.SMALL if m <= 16 else km.LARGE)
+    tiles = -(-m // bm) * -(-n // bn)
+    steps = -(-kw // kstep)
+    assert _grid(plan, m, n) >= min(sms, tiles * steps)
+    if tiles >= 2 * sms:    # the card is full without splitting
+        assert plan.splits == max(1, -(-kw // km.SLAB_WORDS))
+
+
+def test_plan_picks_both_paths_on_the_served_shapes():
+    """The served shapes reach both tiles, with and without a split: decode
+    M = 4 splits K, ResNet-50's 1x1 at M = 25,088 does not."""
+    dec = km._plan(4, 2560, 80, H100_SMS)
+    assert dec.variant == km.SMALL and dec.splits > 1
+    assert _grid(dec, 4, 2560) >= H100_SMS
+    res = km._plan(8 * 56 * 56, 64, 8, H100_SMS)
+    assert res.variant == km.LARGE and res.splits == 1
+    wrap = km._plan(*_SMOKE.WRAP_ROW[::2], 1250, H100_SMS)
+    assert wrap.splits > 1
+
+
+@pytest.mark.parametrize("m,k,n", [(2, 40000, 3), (3, 33056, 5)])
+def test_plain_versions_wrap_like_the_reference(m, k, n):
+    """All codes 255 at <8:8>: P = 65,025 * K passes 2^31 and wraps mod
+    2^32 in both plain versions exactly as the JAX package's int32
+    ``int_matmul_direct`` does."""
+    qa = np.full((m, k), 255, np.int32)
+    qw = np.full((k, n), 255, np.int32)
+    want = jbs.int_matmul_direct(jnp.asarray(qa), jnp.asarray(qw))
+    p = 65025 * k % 2**32
+    assert int(want[0, 0]) == p - 2**32 * (p >= 2**31) < 0
+    pw = tops.pack_planes(t(np.ascontiguousarray(qw.T)), 8)
+    assert_bits_equal(km.bitserial_matmul_fused_plain(t(qa), pw, 8, 8), want)
+    assert_bits_equal(km.packed_matmul_plain(tops.pack_planes(t(qa), 8), pw),
+                      want)
+    assert_bits_equal(tops.bitserial_matmul(t(qa), a_bits=8, w_bits=8, pw=pw),
+                      want)
+
