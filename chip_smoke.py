@@ -10,22 +10,26 @@ failed phase, without a GPU, or outside a checkout.
 
 1. Prints the card's name and power limit; turns TF32 off.
 2. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, and
-   checks that kernels 2 and 4 were built onto the int8 tensor cores (IMMA
-   in the library's SASS) without spills.
+   checks that kernels 2-4 were built onto the int8 tensor cores (IMMA in
+   the SASS of ``bitserial_matmul`` and ``conv2d_fused``) without spills.
 3. Holds each of kernels 1-4 against its plain PyTorch version on the
    card with ``torch.equal`` at the shapes ResNet-50, AlexNet and VGG19
    give it at 224 px in a bucket of 8, plus ragged shapes at <2:2>, <4:4>
    and <8:8>; prints one JSON line per shape with the kernel's time, the
    plain version's, a PyTorch library call's where one computes the same P
    exactly, and the least time the card could take for the same P
-   (``bound_ms``), beside, for kernel 3, the least time of the
-   kernel's own algorithm at the card's popcount rate (``popc_bound_ms``).
+   (``bound_ms``).
    ``kernel_ms`` and ``library_ms`` are CUDA events around 20 and 5
    back-to-back calls (the median of five rounds), so they hold the host's
    launch time where that is the longer; ``kernel_device_ms`` and
    ``library_device_ms`` time the same calls queued behind a spin of the
    card, the device alone; ``kernel_host_ms`` is the host's median time
    to issue one kernel call.
+   Kernel 3 is held at every row of ``CONV_ROWS`` (each prints its launch
+   plan, and ``im2col_route_device_ms``, the device time of the route
+   ``pim_conv2d`` takes with ``conv_mode="im2col"``: the codes' patch
+   matrix, then kernel 2, whose P is held equal), ``RAGGED_CONV_ROWS``
+   and ``CONV_WRAP_ROW`` (all codes 255, K past one slab, P past 2^31).
    Kernels 2 and 4 are held at every row of ``FUSED_ROWS`` and
    ``PACKED_ROWS``: every projection shape of rwkv6-3b (K x N of 2560 x
    2560, 2560 x 8960, 8960 x 2560 and the head's 2560 x 65536) at prefill
@@ -41,11 +45,15 @@ failed phase, without a GPU, or outside a checkout.
    backend "cuda") twice, a warm run and a timed run, and checks that every
    kernel of the path launched during the timed run and that the logits are
    finite. Then times five buckets of 8 and profiles one, for the device's
-   idle share of a bucket, and serves the float path.
+   idle share of a bucket, and serves the float path. The warm run keeps
+   the operands of kernel 3's call at each distinct geometry; they must be
+   ``SERVED_CONVS`` at buckets of 8 and 4, and each is then held with
+   ``torch.equal`` against the plain version at its own launch plan
+   (untimed; each row prints its plan).
 5. Serves AlexNet on the "cuda" and on the "popcount" backend and VGG19 on
    "cuda" the same way (224 px, full width and depth, <8:8>, buckets of 8
-   timed and profiled), each path's launch counts set to 0 just before its
-   timed run and read just after.
+   timed and profiled, kernel 3 held at every served conv), each path's
+   launch counts set to 0 just before its timed run and read just after.
 6. Serves 2 images at a small size on the card and on the CPU (plain
    versions) with the same weights, for each served model and backend:
    equal top-1, logits within rtol 1e-3 and atol 1e-3*max|cpu| (the
@@ -97,14 +105,9 @@ SRC = ROOT / "src"
 # operations. Eq. 1's P is a product of codes of at most 8 bits, so the
 # int8 rate bounds the function at every precision the slice serves, and
 # ``bound_ms`` is the larger of its operations' and its bytes' time.
-# ``popc_bound_ms`` is kernel 3's bit-serial algorithm's own floor, a
-# secondary number: its AND+POPC pairs at 16 __popc per clock per SM (CUDA C++
-# Programming Guide, arithmetic instruction throughput table, compute
-# capability 9.0) times the SM count and the card's maximum SM clock.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 FP32_FLOPS_PER_S = 67e12      # float32 outside the tensor cores
-POPC_PER_CLOCK_PER_SM = 16
 
 # rwkv6-3b serving: decode slots, and the longest prompt (512) plus 32 new
 # tokens.
@@ -150,6 +153,47 @@ PACKED_ROWS = [
 # (M, K, N) with every code 255 at <8:8>: P = 65,025 * K passes 2^31, and K
 # passes one 32,768-K slab.
 WRAP_ROW = (8, 40000, 64)
+# Rows (N, H, C, O, k, stride, pad) of kernel 3 at <8:8>: the convs the
+# served paths give it at 224 px in a bucket of 8.
+CONV_ROWS = [
+    (8, 224, 3, 64, 7, 2, 3),      # ResNet-50 stem 7x7/2
+    (8, 56, 64, 64, 3, 1, 1),      # ResNet-50 s0 3x3
+    (8, 56, 128, 128, 3, 2, 1),    # ResNet-50 s1b0.c2 3x3/2
+    (8, 224, 3, 96, 11, 4, 2),     # AlexNet conv1 11x11/4
+    (8, 27, 96, 256, 5, 1, 2),     # AlexNet conv2 5x5
+    (8, 224, 3, 64, 3, 1, 1),      # VGG19 conv1_1
+    (8, 28, 512, 512, 3, 1, 1),    # VGG19 conv4_2
+    (8, 14, 512, 512, 3, 1, 1),    # VGG19 conv5_1
+]
+# Ragged rows, each at <2:2>, <4:4> and <8:8>: O off the 64-channel tile,
+# odd widths, C = 5 (narrow) and 40 (wide, off the word), stride 2.
+RAGGED_CONV_ROWS = [(2, 9, 5, 131, 3, 2, 1), (2, 9, 40, 131, 3, 1, 1)]
+# (N, H, C, O, k) at <8:8>, pad 0, every code 255: a 3x3 kernel over a 3x3
+# map, K = 9 * C = 33,408 passes one 32,768-K slab and P = 65,025 * K
+# passes 2^31.
+CONV_WRAP_ROW = (1, 3, 3712, 8, 3)
+# Every distinct conv (H, C, O, k, stride, pad) larger than 1x1 of each
+# served model at 224 px: ResNet-50's stem and the 3x3 convs of its stages
+# (s0 at 55 px, after the stem's VALID pool), AlexNet's five, VGG19's nine.
+# At a bucket, kernel 3 runs those where ``fuse_conv_heuristic`` fires
+# (``served_conv_calls``). The warm run of each "cuda" path records the
+# operands of its kernel-3 calls, which must be these at buckets of 8 and
+# 4, and each is held against the plain version at its own launch plan
+# (``KernelChecks.served_conv``).
+SERVED_CONVS = {
+    "resnet50": [(224, 3, 64, 7, 2, 3), (55, 64, 64, 3, 1, 1),
+                 (55, 128, 128, 3, 2, 1), (28, 128, 128, 3, 1, 1),
+                 (28, 256, 256, 3, 2, 1), (14, 256, 256, 3, 1, 1),
+                 (14, 512, 512, 3, 2, 1), (7, 512, 512, 3, 1, 1)],
+    "alexnet": [(224, 3, 96, 11, 4, 2), (27, 96, 256, 5, 1, 2),
+                (13, 256, 384, 3, 1, 1), (13, 384, 384, 3, 1, 1),
+                (13, 384, 256, 3, 1, 1)],
+    "vgg19": [(h, c, o, 3, 1, 1) for h, c, o in (
+        (224, 3, 64), (224, 64, 64), (112, 64, 128), (112, 128, 128),
+        (56, 128, 256), (56, 256, 256), (28, 256, 512), (28, 512, 512),
+        (14, 512, 512))],
+}
+SERVED_BUCKETS = (8, 4)
 
 KERNEL_INFO = {
     "bitplane_pack": dict(
@@ -246,9 +290,8 @@ def device_ms(fn, reps: int, clock_hz: float) -> float:
 class KernelChecks:
     """Kernel-vs-plain comparisons; one JSON line per (kernel, shape)."""
 
-    def __init__(self, torch, popc_per_s: float, clock_hz: float):
+    def __init__(self, torch, clock_hz: float):
         self.torch = torch
-        self.popc_per_s = popc_per_s
         self.clock_hz = clock_hz
         self.gen = torch.Generator(device="cuda").manual_seed(0)
         self.rows = []
@@ -264,7 +307,7 @@ class KernelChecks:
                                   device="cuda", dtype=self.torch.int32)
 
     def _record(self, name, shape, bits, got, want, kernel_fn, plain_fn,
-                library_fn, nbytes, macs, popcs, timing, plan=None):
+                library_fn, nbytes, macs, timing, plan=None, extra=None):
         torch = self.torch
         torch.cuda.synchronize()
         if got.shape != want.shape or not torch.equal(got, want):
@@ -274,12 +317,7 @@ class KernelChecks:
                                  f"(max |diff| {diff})")
         row = dict(kernel=name, shape=shape, bits=bits, max_abs_err=0)
         if plan is not None:
-            from repro_torch.kernels import bitserial_matmul as km
-
-            row["plan"] = dict(variant=plan.variant,
-                               tile=km.TILES[plan.variant][:2],
-                               split_words=plan.split_words,
-                               splits=plan.splits)
+            row["plan"] = plan
         if timing:
             bound_ms, bound_by = self._bound(nbytes, macs)
             kernel_ms, kernel_host_ms = timed_ms(kernel_fn, 20)
@@ -291,9 +329,8 @@ class KernelChecks:
                 else timed_ms(library_fn, 5)[0],
                 library_device_ms=None if library_fn is None
                 else device_ms(library_fn, 5, self.clock_hz),
-                bound_ms=bound_ms, bound_by=bound_by,
-                popc_bound_ms=popcs / self.popc_per_s * 1e3 if popcs
-                else None)
+                bound_ms=bound_ms, bound_by=bound_by)
+        row.update(extra or {})
         print(json.dumps(row), flush=True)
         self.rows.append(row)
 
@@ -307,8 +344,7 @@ class KernelChecks:
             kp.bitplane_pack(q, bits), kp.bitplane_pack_plain(q, bits),
             lambda: kp.bitplane_pack(q, bits),
             lambda: kp.bitplane_pack_plain(q, bits), None,
-            nbytes=4 * m * k + 4 * bits * m * kw, macs=0, popcs=0,
-            timing=timing)
+            nbytes=4 * m * k + 4 * bits * m * kw, macs=0, timing=timing)
 
     def matmul(self, m, k, n, wb, ab, timing=True):
         torch = self.torch
@@ -328,7 +364,7 @@ class KernelChecks:
             lambda: km.bitserial_matmul_fused_plain(qa, pw.planes, ab, wb),
             lambda: torch.matmul(a64, w64),
             nbytes=4 * m * k + 4 * wb * n * kw + 4 * m * n, macs=m * n * k,
-            popcs=0, timing=timing, plan=self._plan(m, n, kw))
+            timing=timing, plan=self._plan(m, n, kw))
 
     def packed(self, m, k, n, wb, ab, timing=True):
         torch = self.torch
@@ -350,12 +386,27 @@ class KernelChecks:
             lambda: km.packed_matmul_plain(pa, pw.planes),
             lambda: torch.matmul(a64, w64),
             nbytes=4 * ab * m * kw + 4 * wb * n * kw + 4 * m * n,
-            macs=m * n * k, popcs=0, timing=timing, plan=self._plan(m, n, kw))
+            macs=m * n * k, timing=timing, plan=self._plan(m, n, kw))
 
     def _plan(self, m, n, kw):
+        """Kernel 2/4's launch plan, as printed."""
         from repro_torch.kernels import bitserial_matmul as km
 
-        return km._plan(m, n, kw, km._sm_count(self.torch.device("cuda", 0)))
+        plan = km._plan(m, n, kw, km._sm_count(self.torch.device("cuda", 0)))
+        return dict(variant=plan.variant, tile=km.TILES[plan.variant][:2],
+                    split_words=plan.split_words, splits=plan.splits)
+
+    def _conv_plan(self, n_oh, ow, cw, c, o, kh, kw, stride):
+        """Kernel 3's launch plan, as printed."""
+        from repro_torch.kernels import conv2d_fused as kc
+
+        plan = kc._plan(n_oh, ow, cw, c, o, kh, kw, stride,
+                        kc._sm_count(self.torch.device("cuda", 0)))
+        return dict(plan._asdict(), variant=("wide", "narrow")[plan.variant],
+                    tile=[plan.tr, plan.tw, kc.BN],
+                    smem_bytes=kc.smem_bytes(
+                        plan.variant, plan.tw, plan.tr, plan.ks,
+                        plan.split_pairs, plan.stages, stride, kw, c))
 
     def wrap(self, m, k, n):
         """Every code 255 at <8:8> through both entries: each equals its
@@ -383,13 +434,17 @@ class KernelChecks:
                 ("bitserial_matmul_packed",
                  km.bitserial_matmul_packed(pa, pw, 8, 8), plain[1])):
             self._record(name, dict(M=m, K=k, N=n, codes=255), "<8:8>", got,
-                         ref, None, None, None, 0, 0, 0, timing=False,
+                         ref, None, None, None, 0, 0, timing=False,
                          plan=self._plan(m, n, kw))
 
     def conv(self, n, h, c, o, ks, stride, pad, wb, ab, timing=True):
+        """Kernel 3 against its plain version, and the im2col route (the
+        patch matrix of the codes, then kernel 2) held to the same P and
+        timed on the device alone."""
         torch = self.torch
         import torch.nn.functional as F
 
+        from repro_torch.core import bitserial, pim_layers
         from repro_torch.core.packed import prepack_conv
         from repro_torch.kernels import conv2d_fused as kc
         from repro_torch.kernels import ops
@@ -405,19 +460,79 @@ class KernelChecks:
         geo = dict(n=n, hp=hp, oh=oh, ow=oh, stride=stride)
         x64 = qx.permute(0, 3, 1, 2).double()
         w64 = pk.mat.codes.reshape(ks, ks, c, o).permute(3, 2, 0, 1).double()
+
+        def im2col_route():
+            cols, _, _ = pim_layers._im2col(qx, ks, ks, stride, 0)
+            return bitserial.int_matmul_prepacked(cols, pk.mat, ab, "cuda")
+
+        got = kc.conv2d_bitserial_fused(pa, pk.fused_planes, c=c, **geo)
+        if not torch.equal(im2col_route().reshape(got.shape), got):
+            raise AssertionError(f"conv {n, h, c, o, ks, stride}: the im2col "
+                                 "route's P differs from kernel 3's")
         self._record(
             "conv2d_bitserial_fused",
             dict(N=n, H=h, C=c, O=o, k=ks, stride=stride, pad=pad),
-            f"<{wb}:{ab}>",
-            kc.conv2d_bitserial_fused(pa, pk.fused_planes, **geo),
+            f"<{wb}:{ab}>", got,
             kc.conv2d_fused_plain(pa, pk.fused_planes, **geo),
-            lambda: kc.conv2d_bitserial_fused(pa, pk.fused_planes, **geo),
+            lambda: kc.conv2d_bitserial_fused(pa, pk.fused_planes, c=c,
+                                              **geo),
             lambda: kc.conv2d_fused_plain(pa, pk.fused_planes, **geo),
             lambda: F.conv2d(x64, w64, stride=stride),
             nbytes=4 * ab * n * hp * hp * cw + pk.fused_planes.numel() * 4
             + 4 * n * oh * oh * o, macs=n * oh * oh * o * ks * ks * c,
-            popcs=n * oh * oh * o * ks * ks * cw * ab * wb, timing=timing)
+            timing=timing,
+            plan=self._conv_plan(n * oh, oh, cw, c, o, ks, ks, stride),
+            extra=dict(im2col_route_device_ms=device_ms(
+                im2col_route, 20, self.clock_hz)))
 
+    def conv_wrap(self, n, h, c, o, ks):
+        """Every code 255 at <8:8>, pad 0: kernel 3 equals its plain
+        version, and both equal 65,025 * KH*KW*C wrapped mod 2^32 like the
+        reference's int32."""
+        torch = self.torch
+        from repro_torch.kernels import bitplane_pack as kp
+        from repro_torch.kernels import conv2d_fused as kc
+
+        cw = -(-c // 32)
+        pa = kp.bitplane_pack_plain(
+            torch.full((n * h * h, c), 255, dtype=torch.int32, device="cuda"),
+            8).reshape(8, n * h, h, cw)
+        pw = kp.bitplane_pack_plain(
+            torch.full((ks * o * ks, c), 255, dtype=torch.int32,
+                       device="cuda"), 8).reshape(8, ks, o, ks, cw)
+        pw = pw.permute(1, 0, 2, 3, 4).contiguous()
+        oh = h - ks + 1
+        geo = dict(n=n, hp=h, oh=oh, ow=oh, stride=1)
+        p = 65025 * ks * ks * c % 2**32
+        want = torch.full((n, oh, oh, o), p - 2**32 * (p >= 2**31),
+                          dtype=torch.int32, device="cuda")
+        plain = kc.conv2d_fused_plain(pa, pw, **geo)
+        if not torch.equal(plain, want):
+            raise AssertionError(f"conv plain version does not wrap to "
+                                 f"{want.flatten()[0]}")
+        self._record("conv2d_bitserial_fused",
+                     dict(N=n, H=h, C=c, O=o, k=ks, codes=255), "<8:8>",
+                     kc.conv2d_bitserial_fused(pa, pw, c=c, **geo), plain,
+                     None, None, None, 0, 0, timing=False,
+                     plan=self._conv_plan(n * oh, oh, cw, c, o, ks, ks, 1))
+
+    def served_conv(self, model, pa, pw, geo):
+        """Kernel 3 on operands a served path gave it, untimed: equal to
+        its plain version at that call's own launch plan."""
+        from repro_torch.kernels import conv2d_fused as kc
+
+        a_bits, _, wp, cw = pa.shape
+        kh, w_bits, o, kw, _ = pw.shape
+        plain_geo = {k: v for k, v in geo.items() if k != "c"}
+        self._record(
+            "conv2d_bitserial_fused",
+            dict(model=model, N=geo["n"], Hp=geo["hp"], Wp=wp, C=geo["c"],
+                 O=o, k=kh, stride=geo["stride"], OH=geo["oh"]),
+            f"<{w_bits}:{a_bits}>", kc.conv2d_bitserial_fused(pa, pw, **geo),
+            kc.conv2d_fused_plain(pa, pw, **plain_geo), None, None, None, 0,
+            0, timing=False,
+            plan=self._conv_plan(geo["n"] * geo["oh"], geo["ow"], cw,
+                                 geo["c"], o, kh, kw, geo["stride"]))
 
     def wkv(self, bh, s, d, chunk, timing=True):
         """Kernel 5 against its plain chunked version on the reference
@@ -464,27 +579,27 @@ class KernelChecks:
                 plain_ms=timed_ms(lambda: kw.wkv_chunked_plain(*a, chunk),
                                   2, rounds=1)[0],
                 library_ms=None, library_device_ms=None, bound_ms=bound_ms,
-                bound_by=bound_by, popc_bound_ms=None)
+                bound_by=bound_by)
         print(json.dumps(row), flush=True)
         self.rows.append(row)
 
 
-def check_matmul_build(build) -> None:
-    """Kernels 2 and 4 run on the int8 tensor cores without spills: the
+def check_imma_build(build, name) -> None:
+    """Kernels 2-4 run on the int8 tensor cores without spills: the
     library's SASS holds IMMA instructions (``cuobjdump``, beside ``nvcc``)
     and ``ptxas -v`` reports no spilled bytes in the build of that same
     library (its log carries the library's digest in its name)."""
-    log = build.log_path("bitserial_matmul").read_text()
+    log = build.log_path(name).read_text()
     spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", log))
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run(
-        [str(cuobjdump), "-sass", str(build.library_path("bitserial_matmul"))],
+        [str(cuobjdump), "-sass", str(build.library_path(name))],
         check=True, capture_output=True, text=True, timeout=300).stdout
     imma = len(re.findall(r"\bIMMA\.", sass))
-    print(json.dumps(dict(bitserial_matmul_imma_instructions=imma,
-                          bitserial_matmul_spill_bytes=spills)), flush=True)
+    print(json.dumps({f"{name}_imma_instructions": imma,
+                      f"{name}_spill_bytes": spills}), flush=True)
     if not imma or spills:
-        raise AssertionError(f"bitserial_matmul: {imma} IMMA instructions, "
+        raise AssertionError(f"{name}: {imma} IMMA instructions, "
                              f"{spills} spilled bytes")
 
 
@@ -540,7 +655,7 @@ def profile_bucket(torch, eng, imgs, request_cls, model) -> dict:
     ours = {k: v for k, v in dev.items()
             if any(s in k for s in ("bitplane_pack_kernel",
                                     "bitserial_matmul_kernel",
-                                    "conv2d_fused_kernel"))}
+                                    "conv2d_fused_"))}
     top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:12]
     return dict(wall_ms=wall_ms, device_ms=device_ms,
                 idle_share=1 - device_ms / wall_ms if wall_ms else None,
@@ -564,8 +679,7 @@ def summary(rows, name, launches, headline):
                 ms=row["kernel_ms"], device_ms=row["kernel_device_ms"],
                 plain_ms=row["plain_ms"],
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-                library_ms=row["library_ms"],
-                popc_bound_ms=row["popc_bound_ms"], shape=headline)
+                library_ms=row["library_ms"], shape=headline)
 
 
 # Kernels each served path must launch (the rest may stay at 0).
@@ -576,6 +690,58 @@ PATH_KERNELS = {
 }
 
 
+class recorded_convs:
+    """While open, keeps a copy of the operands of kernel 3's first call at
+    each distinct geometry (all that its launch plan depends on) in
+    ``calls``; every call runs the kernel as before."""
+
+    def __enter__(self):
+        from repro_torch.kernels import conv2d_fused as kc
+
+        self.module, self.kernel = kc, kc.conv2d_bitserial_fused
+        self.calls = {}
+
+        def spy(pa, pw, **geo):
+            key = (tuple(pa.shape), tuple(pw.shape), *sorted(geo.items()))
+            if key not in self.calls:
+                self.calls[key] = (pa.clone(), pw.clone(), geo)
+            return self.kernel(pa, pw, **geo)
+
+        kc.conv2d_bitserial_fused = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.conv2d_bitserial_fused = self.kernel
+
+
+def served_conv_calls(model) -> list:
+    """(N, Hp, C, O, k, stride, OH) of each distinct kernel-3 call of
+    ``model``'s served path at the buckets of ``SERVED_BUCKETS``: the convs
+    of ``SERVED_CONVS`` where ``pim_conv2d`` takes the fused path."""
+    from repro_torch.core.pim_layers import fuse_conv_heuristic
+
+    calls = []
+    for n in SERVED_BUCKETS:
+        for h, c, o, k, s, p in SERVED_CONVS[model]:
+            oh = (h + 2 * p - k) // s + 1
+            if fuse_conv_heuristic(n, oh, oh, k, k, c, "cuda"):
+                calls.append((n, h + 2 * p, c, o, k, s, oh))
+    return sorted(calls)
+
+
+def check_served_convs(kc, model, calls):
+    """The kernel-3 calls a served path's warm run recorded are
+    ``served_conv_calls(model)``, and each equals the plain version."""
+    want = served_conv_calls(model)
+    got = sorted((geo["n"], geo["hp"], geo["c"], pw.shape[2], pw.shape[0],
+                  geo["stride"], geo["oh"]) for _, pw, geo in calls.values())
+    if got != want:
+        raise AssertionError(f"{model}: kernel 3 ran at (N, Hp, C, O, k, "
+                             f"stride, OH) {got}, SERVED_CONVS lists {want}")
+    for pa, pw, geo in calls.values():
+        kc.served_conv(model, pa, pw, geo)
+
+
 def serve_path(torch, np, ops, eng, model, backend, imgs, request_cls):
     """One served path: a warm run (prepack, first launches), a timed run of
     every image with the launch counts set to 0 just before it and read just
@@ -583,7 +749,9 @@ def serve_path(torch, np, ops, eng, model, backend, imgs, request_cls):
     host-side tracing slows dispatch; the last one's launches are the
     launches per bucket) and one profiled bucket, for the device's idle
     share. Fails if a kernel of the path never launched, on wrong buckets
-    or on non-finite or misshapen logits."""
+    or on non-finite or misshapen logits. Returns the completions, the
+    timed run's launches and the warm run's kernel-3 calls
+    (``recorded_convs``)."""
 
     def serve(n):
         for rid in range(n):
@@ -593,7 +761,8 @@ def serve_path(torch, np, ops, eng, model, backend, imgs, request_cls):
         torch.cuda.synchronize()
         return sorted(done, key=lambda c: c.rid), time.perf_counter() - t
 
-    serve(len(imgs))
+    with recorded_convs() as convs:
+        serve(len(imgs))
     ops.reset_launch_counts()
     done, dt = serve(len(imgs))
     launches = ops.launch_counts()
@@ -624,7 +793,7 @@ def serve_path(torch, np, ops, eng, model, backend, imgs, request_cls):
         np.median(walls))
     print(json.dumps(dict(profile_bucket_of_8=prof, serving=model,
                           backend=backend)), flush=True)
-    return done, launches
+    return done, launches, convs.calls
 
 
 def gpu_vs_cpu(torch, np, module, model, backend, image):
@@ -1013,38 +1182,29 @@ def main() -> int:
             if log.exists():
                 print(f"--- nvcc {name} ---\n{log.read_text().strip()}",
                       flush=True)
-        check_matmul_build(_build)
+        for name in ("bitserial_matmul", "conv2d_fused"):
+            check_imma_build(_build, name)
 
     # -- 3. kernels against their plain versions -----------------------------
     props = torch.cuda.get_device_properties(0)
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
-    popc_per_s = POPC_PER_CLOCK_PER_SM * props.multi_processor_count \
-        * clock_mhz * 1e6
     print(f"bounds: memory {HBM_BYTES_PER_S:.3g} B/s, int8 "
-          f"{INT8_OPS_PER_S:.4g} op/s; popcount {props.multi_processor_count} "
-          f"SMs at {clock_mhz:.0f} MHz -> {popc_per_s:.4g} popc/s",
-          flush=True)
-    kc = KernelChecks(torch, popc_per_s, clock_mhz * 1e6)
+          f"{INT8_OPS_PER_S:.4g} op/s; {props.multi_processor_count} SMs at "
+          f"{clock_mhz:.0f} MHz", flush=True)
+    kc = KernelChecks(torch, clock_mhz * 1e6)
     with phase("kernels"):
         # ResNet-50 shapes at 224 px, bucket of 8, <8:8>.
         kc.pack(8 * 230 * 230, 3, 8)          # stem input, C=3 -> one word
         kc.pack(8 * 58 * 58, 64, 8)           # s0 3x3 input
         kc.pack(8 * 58 * 58, 128, 8)          # s1b0.c2 input
-        kc.conv(8, 224, 3, 64, 7, 2, 3, 8, 8)     # stem 7x7/2
-        kc.conv(8, 56, 64, 64, 3, 1, 1, 8, 8)     # s0 3x3
-        kc.conv(8, 56, 128, 128, 3, 2, 1, 8, 8)   # s1b0.c2 3x3/2
-        # AlexNet: its convs on "cuda", its im2col GEMMs on "popcount".
-        kc.conv(8, 224, 3, 96, 11, 4, 2, 8, 8)    # conv1 11x11/4
-        kc.conv(8, 27, 96, 256, 5, 1, 2, 8, 8)    # conv2 5x5
-        # VGG19 on "cuda": its first conv, a C=O=512 conv at 28 and at 14
-        # px, and fc1.
-        kc.conv(8, 224, 3, 64, 3, 1, 1, 8, 8)     # conv1_1
-        kc.conv(8, 28, 512, 512, 3, 1, 1, 8, 8)   # conv4_2
-        kc.conv(8, 14, 512, 512, 3, 1, 1, 8, 8)   # conv5_1
-        # Ragged cases at each paper precision.
+        # Kernel 3: the served convs, the ragged rows, the wrap.
+        for row in CONV_ROWS:
+            kc.conv(*row, 8, 8)
         for bits in (2, 4, 8):
             kc.pack(37, 70, bits, timing=False)
-            kc.conv(2, 9, 5, 131, 3, 2, 1, bits, bits, timing=False)
+            for row in RAGGED_CONV_ROWS:
+                kc.conv(*row, bits, bits, timing=False)
+        kc.conv_wrap(*CONV_WRAP_ROW)
         backends_agree(torch, 8 * 55 * 55, 363, 96, 8)   # AlexNet conv1
         # rwkv6-3b: kernel 5 at a batch-1 prefill's shapes (40 heads of 64)
         # and the reference test's sweep.
@@ -1068,8 +1228,8 @@ def main() -> int:
         params = resnet.init(torch.Generator().manual_seed(0),
                              num_classes=1000, image=224)
         eng = VisionEngine({"resnet50": params}, backend="cuda", max_batch=8)
-        done, launches = serve_path(torch, np, ops, eng, "resnet50", "cuda",
-                                    imgs, VisionRequest)
+        done, launches, convs = serve_path(torch, np, ops, eng, "resnet50",
+                                           "cuda", imgs, VisionRequest)
     with phase("serve resnet50 float"):
         fdone = None
         for _ in range(2):                          # warm, then timed
@@ -1084,6 +1244,9 @@ def main() -> int:
         print(json.dumps(dict(float_path_img_per_s=12 / fdt,
                               top1_agreement_with_float=agree)), flush=True)
     del eng, params
+    with phase("kernel 3 at resnet50's served convs"):
+        check_served_convs(kc, "resnet50", convs)
+    del convs
 
     # -- 5. serving AlexNet and VGG19 -----------------------------------------
     paths = {}
@@ -1094,10 +1257,14 @@ def main() -> int:
             params = module.init(torch.Generator().manual_seed(0),
                                  num_classes=1000, image=224)
             eng = VisionEngine({model: params}, backend=backend, max_batch=8)
-            _, paths[(model, backend)] = serve_path(
+            _, paths[(model, backend)], convs = serve_path(
                 torch, np, ops, eng, model, backend, imgs, VisionRequest)
             del eng, params
-            torch.cuda.empty_cache()
+        if backend == "cuda":
+            with phase(f"kernel 3 at {model}'s served convs"):
+                check_served_convs(kc, model, convs)
+        del convs
+        torch.cuda.empty_cache()
 
     # -- 6. end to end against the CPU's plain versions ----------------------
     for module, model, backend, image in (

@@ -88,7 +88,7 @@ def conv2d_bitserial(qx: torch.Tensor, pw: torch.Tensor, *, a_bits: int,
         raise ValueError(f"channel words {pa.shape[-1]} != weight words {cw}")
     pa = pa.reshape(a_bits, n * hp, wp, cw)
     return _conv.conv2d_bitserial_fused(pa, pw, n=n, hp=hp, oh=oh, ow=ow,
-                                        stride=stride)
+                                        stride=stride, c=c)
 
 
 def wkv_chunked(r, k, v, lw, u, s0, *, chunk: int = 16):

@@ -49,7 +49,7 @@ from repro_torch.models.lm.model import (decode_step, init_state,
                                          to_device)
 
 from .sampler import SamplerConfig, sample_per_slot
-from .vision import resolve_device
+from .vision import refuse_unported, resolve_device
 
 
 @dataclasses.dataclass
@@ -78,20 +78,6 @@ def _pow2_chunks(n: int) -> list[int]:
     return out
 
 
-# Constructor options of the JAX engine that later slices port.
-_LATER = {
-    "mesh": "mesh serving",
-    "faults": "faults and the watchdog",
-    "watchdog": "faults and the watchdog",
-    "fault_injector": "faults and the watchdog",
-    "keep_masters": "redeploy and the gateway",
-    "autotune": "the autotuner",
-    "tuning_cache": "the autotuner",
-    "pipeline_stages": "pipelined decode with mesh serving",
-    "pipeline_microbatches": "pipelined decode with mesh serving",
-}
-
-
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, max_batch: int = 8,
                  max_len: int = 512, sampler: SamplerConfig | None = None,
@@ -100,18 +86,14 @@ class ServeEngine:
                  keep_masters: bool = False, autotune: str = "off",
                  tuning_cache=None, pipeline_stages: int = 1,
                  pipeline_microbatches: int | None = None):
-        asked = dict(mesh=mesh is not None, faults=faults is not None,
-                     watchdog=watchdog is not None,
-                     fault_injector=fault_injector is not None,
-                     keep_masters=keep_masters, autotune=autotune != "off",
-                     tuning_cache=tuning_cache is not None,
-                     pipeline_stages=pipeline_stages != 1,
-                     pipeline_microbatches=pipeline_microbatches is not None)
-        for name, on in asked.items():
-            if on:
-                raise NotImplementedError(
-                    f"ServeEngine({name}=...) is not ported yet: it comes "
-                    f"with {_LATER[name]} (ROADMAP.md Queue 1)")
+        refuse_unported("ServeEngine", dict(
+            mesh=mesh is not None, faults=faults is not None,
+            watchdog=watchdog is not None,
+            fault_injector=fault_injector is not None,
+            keep_masters=keep_masters, autotune=autotune != "off",
+            tuning_cache=tuning_cache is not None,
+            pipeline_stages=pipeline_stages != 1,
+            pipeline_microbatches=pipeline_microbatches is not None))
         self.device = resolve_device(device)
         disable_tf32()
         self.cfg = cfg

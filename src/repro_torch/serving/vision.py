@@ -68,6 +68,31 @@ class VisionCompletion:
     batch: int                      # bucket size this request rode in
 
 
+# Constructor options of the JAX engines that later slices port, and the
+# slice (ROADMAP.md Queue 1) that brings each.
+_LATER = {
+    "mesh": "mesh serving",
+    "faults": "faults and the watchdog",
+    "watchdog": "faults and the watchdog",
+    "fault_injector": "faults and the watchdog",
+    "keep_masters": "redeploy and the gateway",
+    "autotune": "the autotuner",
+    "tuning_cache": "the autotuner",
+    "pipeline_stages": "pipelined decode with mesh serving",
+    "pipeline_microbatches": "pipelined decode with mesh serving",
+}
+
+
+def refuse_unported(engine: str, asked: dict) -> None:
+    """Raise ``NotImplementedError`` naming the slice of the first option
+    in ``asked`` (name -> set to a non-default) that is set."""
+    for name, on in asked.items():
+        if on:
+            raise NotImplementedError(
+                f"{engine}({name}=...) is not ported yet: it comes with "
+                f"{_LATER[name]} (ROADMAP.md Queue 1)")
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on; CUDA must be there if asked for."""
     device = torch.device(device)
@@ -91,10 +116,26 @@ class VisionEngine:
     request (one of ``BACKENDS``: "cuda", "popcount", "mxu-plane",
     "int-direct"); requests pick their own precision. ``max_batch`` is the
     largest micro-batch bucket (rounded down to a power of two).
+
+    The reference's other keywords are taken at their defaults; ``seed`` is
+    kept (nothing in this slice draws from it), and a non-default ``mesh``,
+    ``faults``, ``watchdog``, ``fault_injector``, ``autotune`` or
+    ``tuning_cache`` raises ``NotImplementedError`` naming the slice that
+    brings it.
     """
 
     def __init__(self, models: dict, backend: str = "cuda",
-                 max_batch: int = 8, device="cuda"):
+                 max_batch: int = 8, mesh=None, faults=None, watchdog=None,
+                 fault_injector=None, seed: int = 0, autotune: str = "off",
+                 tuning_cache=None, device="cuda"):
+        if autotune not in ("off", "cost", "measure"):
+            raise ValueError(
+                f"autotune {autotune!r}: want 'off' | 'cost' | 'measure'")
+        refuse_unported("VisionEngine", dict(
+            mesh=mesh is not None, faults=faults is not None,
+            watchdog=watchdog is not None,
+            fault_injector=fault_injector is not None,
+            autotune=autotune != "off", tuning_cache=tuning_cache is not None))
         PIMQuantConfig(backend=backend)     # rejects an unknown backend
         self.device = resolve_device(device)
         disable_tf32()
@@ -111,6 +152,7 @@ class VisionEngine:
             self._models[name] = (module, params)
         self.backend = backend
         self.max_batch = 1 << (max(1, max_batch).bit_length() - 1)
+        self.seed = seed
         self.queue: collections.deque = collections.deque()
         self._masters: dict = {}    # model -> float tree on the device
         self._packed: dict = {}     # (model, precision) -> param tree
@@ -150,6 +192,22 @@ class VisionEngine:
         if parse_precision(req.precision) is None:
             req.precision = None
         self.queue.append(req)
+
+    def cancel(self, rid: int) -> bool:
+        """Remove a queued request; False if no queued request has ``rid``.
+        A bucket in flight has no state to release, so this is queue
+        surgery only."""
+        for i, r in enumerate(self.queue):
+            if r.rid == rid:
+                del self.queue[i]
+                return True
+        return False
+
+    @property
+    def n_free_slots(self) -> int:
+        """Admission headroom: the engine buckets at most ``max_batch`` a
+        step, so at most one bucket's worth waits in the queue."""
+        return max(0, self.max_batch - len(self.queue))
 
     def _group_key(self, req: VisionRequest):
         return (req.model, req.precision, np.asarray(req.image).shape)

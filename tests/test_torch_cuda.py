@@ -155,6 +155,133 @@ def test_conv_kernel_equals_plain(gen, shape, o, ks, stride, pad, bits):
                        kc.conv2d_fused_plain(pa, pw, **geo))
 
 
+def _conv_operands(gen, shape, o, ks, pad, ab, wb):
+    """Random codes padded with the zero code, packed along C, and
+    prepacked weight planes: (pa, pw, hp, wp)."""
+    qx = F.pad(_codes(gen, shape, ab), (0, 0, pad, pad, pad, pad))
+    n, hp, wp, c = qx.shape
+    pw = prepack_conv(torch.randn((ks, ks, c, o), generator=gen,
+                                  device="cuda"), wb).fused_planes
+    pa = kp.bitplane_pack_plain(qx.reshape(n * hp * wp, c), ab).reshape(
+        ab, n * hp, wp, -1)
+    return pa, pw, hp, wp
+
+
+@pytest.mark.parametrize("shape,o,ks,stride,pad", [
+    ((2, 224, 224, 3), 64, 7, 2, 3),       # ResNet stem 7x7/2, no K split
+    ((1, 64, 64, 3), 96, 11, 4, 2),        # AlexNet conv1 11x11/4
+    ((1, 32, 32, 3), 64, 3, 1, 1),         # VGG19 conv1_1
+    ((2, 14, 14, 64), 64, 3, 1, 1),        # ResNet s0 3x3
+    ((2, 14, 14, 128), 128, 3, 2, 1),      # ResNet s1b0.c2 3x3/2
+    ((2, 13, 13, 96), 256, 5, 1, 2),       # AlexNet conv2 5x5
+    ((1, 7, 7, 512), 512, 3, 1, 1),        # VGG19 conv5_1, K split
+    ((2, 9, 9, 5), 131, 3, 2, 1),          # narrow, ragged O
+    ((2, 9, 9, 40), 131, 3, 1, 1),         # wide, C off the word
+    ((1, 10, 10, 31), 70, 5, 4, 2),        # narrow, two K groups a row
+    ((1, 9, 13, 33), 16, 3, 2, 1)])        # wide, one lane past a word
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_conv_kernel_served_and_ragged_rows(gen, shape, o, ks, stride, pad,
+                                            bits):
+    """Reduced served rows and ragged ones, at each paper precision, with
+    the channel count given (C < 32 takes the narrow variant)."""
+    pa, pw, hp, wp = _conv_operands(gen, shape, o, ks, pad, bits, bits)
+    geo = dict(n=shape[0], hp=hp, oh=(hp - ks) // stride + 1,
+               ow=(wp - ks) // stride + 1, stride=stride)
+    assert torch.equal(kc.conv2d_bitserial_fused(pa, pw, c=shape[-1], **geo),
+                       kc.conv2d_fused_plain(pa, pw, **geo))
+
+
+@pytest.mark.parametrize("shape,o,ks,stride,pad", [
+    ((1, 7, 7, 512), 512, 3, 1, 1), ((2, 20, 20, 3), 64, 7, 2, 3),
+    ((1, 12, 12, 96), 96, 5, 1, 2)])
+def test_conv_kernel_split_and_whole_agree(gen, monkeypatch, shape, o, ks,
+                                           stride, pad):
+    """The same conv launched whole (one K range, plain stores) and split
+    into one range a pair (uint32 atomics into a zeroed output): both equal
+    the plain version, and a plan the C entry cannot sum exactly (a range
+    past one slab) is refused, not run."""
+    pa, pw, hp, wp = _conv_operands(gen, shape, o, ks, pad, 8, 8)
+    n, c = shape[0], shape[-1]
+    geo = dict(n=n, hp=hp, oh=(hp - ks) // stride + 1,
+               ow=(wp - ks) // stride + 1, stride=stride)
+    want = kc.conv2d_fused_plain(pa, pw, **geo)
+    real = kc._plan
+    plan = real(n * geo["oh"], geo["ow"], pa.shape[-1], c, o, ks, ks, stride,
+                km._sm_count(pa.device))
+    pairs = ks * (1 if plan.variant == kc.NARROW else -(-pa.shape[-1]
+                                                        // plan.ks))
+    for split_pairs, splits in ((pairs, 1), (1, pairs)):
+        monkeypatch.setattr(kc, "_plan", lambda *a: plan._replace(
+            split_pairs=split_pairs, splits=splits))
+        assert torch.equal(kc.conv2d_bitserial_fused(pa, pw, c=c, **geo),
+                           want)
+    monkeypatch.setattr(kc, "_plan", lambda *a: plan._replace(
+        split_pairs=kc.SLAB_WORDS + 1, splits=1))
+    with pytest.raises(RuntimeError, match="conv2d_bitserial_fused"):
+        kc.conv2d_bitserial_fused(pa, pw, c=c, **geo)
+
+
+def test_conv_kernel_wraps_mod_2_32(gen):
+    """Every code 255 at <8:8>, a 3x3 kernel over a 3x3 map, C = 3,712: K =
+    33,408 passes one 32,768-K slab and P = 65,025 * K passes 2^31; the
+    kernel wraps like the reference's int32."""
+    c, o = 3712, 8
+    pa = kp.bitplane_pack_plain(torch.full((9, c), 255, dtype=torch.int32,
+                                           device="cuda"), 8).reshape(
+        8, 3, 3, -1)
+    pw = kp.bitplane_pack_plain(torch.full((9 * o, c), 255,
+                                           dtype=torch.int32, device="cuda"),
+                                8).reshape(8, 3, o, 3, -1)
+    pw = pw.permute(1, 0, 2, 3, 4).contiguous()
+    geo = dict(n=1, hp=3, oh=1, ow=1, stride=1)
+    got = kc.conv2d_bitserial_fused(pa, pw, c=c, **geo)
+    p = 65025 * 9 * c % 2**32
+    assert torch.equal(got, kc.conv2d_fused_plain(pa, pw, **geo))
+    assert (got == p - 2**32).all()
+
+
+def test_conv_wrapper_holds_each_plans_shared_memory_to_the_library(
+        gen, monkeypatch):
+    """The wrapper holds its count of a new plan's shared memory equal to
+    the C library's before the launch, and refuses the plan where the two
+    differ."""
+    pa, pw, hp, wp = _conv_operands(gen, (1, 7, 7, 64), 64, 3, 1, 8, 8)
+    geo = dict(n=1, hp=hp, oh=hp - 2, ow=wp - 2, stride=1)
+    want = kc.conv2d_fused_plain(pa, pw, **geo)
+    kc._hold_smem.cache_clear()
+    assert torch.equal(kc.conv2d_bitserial_fused(pa, pw, c=64, **geo), want)
+    kc._hold_smem.cache_clear()
+    monkeypatch.setattr(kc, "smem_bytes", lambda *a: 0)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        kc.conv2d_bitserial_fused(pa, pw, c=64, **geo)
+
+
+def test_conv_library_reports_the_plans_geometry(gen):
+    """The C library's tile, ring, slab and shared-memory limit are the
+    ones ``_plan`` sizes for, and it computes every chip_smoke.py row's
+    shared memory as ``smem_bytes`` does."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    lib = _build.load("conv2d_fused", kc._ARGTYPES)
+    got = (ctypes.c_int * 6)()
+    assert lib.repro_conv2d_fused_tile(got) == 0
+    assert tuple(got) == (kc.BM, kc.BN, kc.WIDE_STAGES, kc.MAX_STAGES,
+                          kc.SLAB_WORDS, kc.SMEM_LIMIT)
+    for n, h, c, o, ks, stride, pad in (smoke.CONV_ROWS
+                                        + smoke.RAGGED_CONV_ROWS):
+        oh = (h + 2 * pad - ks) // stride + 1
+        plan = kc._plan(n * oh, oh, -(-c // 32), c, o, ks, ks, stride, 132)
+        geometry = (plan.variant, plan.tw, plan.tr, plan.ks,
+                    plan.split_pairs, plan.stages, stride, ks, c)
+        assert lib.repro_conv2d_fused_smem(*geometry) == \
+            kc.smem_bytes(*geometry)
+
+
 def test_cuda_layers_launch_kernels_and_no_library_product(gen, monkeypatch):
     """The quantized layers on CUDA tensors count one launch per kernel
     call and compute P without torch.matmul, F.conv2d or torch._int_mm."""

@@ -234,6 +234,66 @@ def test_entry_points_default_to_cuda_and_never_run_on_cpu(small_resnet):
                      device="cpu")
 
 
+def test_engine_takes_the_reference_constructor_at_its_defaults():
+    """The port's constructor takes the reference's keywords, in its order
+    (``device`` last), and accepts a call that passes each at its default,
+    as the reference does."""
+    import inspect
+
+    want = list(inspect.signature(JVisionEngine.__init__).parameters)
+    got = list(inspect.signature(VisionEngine.__init__).parameters)
+    assert got[-1] == "device" and got[:-1] == want
+    defaults = dict(mesh=None, faults=None, watchdog=None,
+                    fault_injector=None, seed=0, autotune="off",
+                    tuning_cache=None)
+    jeng = JVisionEngine({"resnet50": {}}, max_batch=4, **defaults)
+    jeng.close()
+    eng = VisionEngine({"resnet50": {}}, max_batch=4, device="cpu",
+                       **dict(defaults, seed=7))
+    assert eng.seed == 7 and eng.max_batch == 4
+
+
+@pytest.mark.parametrize("name,value,slice_", [
+    ("mesh", object(), "mesh serving"),
+    ("faults", object(), "faults and the watchdog"),
+    ("watchdog", object(), "faults and the watchdog"),
+    ("fault_injector", lambda *a: None, "faults and the watchdog"),
+    ("autotune", "cost", "the autotuner"),
+    ("autotune", "measure", "the autotuner"),
+    ("tuning_cache", object(), "the autotuner")])
+def test_engine_names_the_slice_of_each_later_keyword(name, value, slice_):
+    with pytest.raises(NotImplementedError,
+                       match=f"{name}=.*{slice_} \\(ROADMAP.md Queue 1\\)"):
+        VisionEngine({"resnet50": {}}, device="cpu", **{name: value})
+
+
+def test_engine_rejects_a_bad_autotune_like_the_reference():
+    for cls in (JVisionEngine, VisionEngine):
+        with pytest.raises(ValueError, match="autotune"):
+            cls({"resnet50": {}}, autotune="fast")
+
+
+def test_cancel_and_free_slots_match_the_reference():
+    """The same queue in both engines: free slots as it fills, cancel of a
+    queued, an already cancelled and an unknown rid, and the queue left."""
+    image = np.zeros((16, 16, 3), np.float32)
+    jeng = JVisionEngine({"resnet50": {}}, max_batch=4)
+    eng = VisionEngine({"resnet50": {}}, max_batch=4, device="cpu")
+    seen = []
+    for e, req in ((jeng, JVisionRequest), (eng, VisionRequest)):
+        free = [e.n_free_slots]
+        for rid in range(5):
+            e.submit(req(rid=rid, image=image))
+            free.append(e.n_free_slots)
+        cancels = [e.cancel(r) for r in (2, 2, 9, 0)]
+        seen.append((free, cancels, [r.rid for r in e.queue],
+                     e.n_free_slots))
+    jeng.close()
+    assert seen[0] == seen[1]
+    assert seen[1] == ([4, 3, 2, 1, 0, 0], [True, False, False, True],
+                       [1, 3, 4], 1)
+
+
 def test_launcher_serves_on_cpu_when_asked(small_resnet, capsys):
     tserve.main(["--workload", "cnn", "--image", "16", "--classes", "7",
                  "--requests", "3", "--max-batch", "2", "--device", "cpu"])
