@@ -2,6 +2,8 @@
 """Smoke test of the PyTorch + CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel-rows   # build, then kernels 1 and 5's
+                                          # timed rows only
 
 Run from the root of a checkout on a machine with an NVIDIA H100 and the
 CUDA toolkit (``nvcc`` with sm_90a). It imports nothing of JAX or of the
@@ -38,14 +40,26 @@ failed phase, without a GPU, or outside a checkout.
    its tile and K splits), and ``WRAP_ROW`` (all codes 255, P past 2^31).
    Then holds the four Eq. 1 backends' P equal to each other at AlexNet
    conv1's im2col shape, and kernel 5 against its plain version at a
-   batch-1 prefill's shapes (40 heads of 64, S = 16, 64, 256) and the
-   reference test's sweep.
+   batch-1 prefill's shapes (40 heads of 64, S = 16, 64, 256, 512), a
+   batch-2 prefill (BH = 80), on strided (H, S, D) views of (1, S, H, D)
+   tensors, and at the reference test's sweep (each row prints its launch
+   plan). Kernel 1 is held at ResNet-50's and VGG19's input shapes and at
+   ragged rows of 1-16 bits.
+   Then prepacks one linear and one conv weight on the card at 8 and 16
+   bits: the planes of each layout (linear, conv ``mat``, conv ``fused``)
+   equal the plain version's bit for bit, and each pack launched kernel 1.
+   ``--kernel-rows`` runs the build and kernels 1 and 5's timed rows and
+   stops, to time another tree's kernels with this script (copy it into
+   that tree).
 4. Serves 12 requests (buckets 8 + 4) through ``VisionEngine`` with
    ResNet-50 (random weights from a seed, 1000 classes, 224 px, <8:8>,
    backend "cuda") twice, a warm run and a timed run, and checks that every
    kernel of the path launched during the timed run and that the logits are
    finite. Then times five buckets of 8 and profiles one, for the device's
-   idle share of a bucket, and serves the float path. The warm run keeps
+   idle share of a bucket, and serves the float path. The warm run's
+   prepack must pack every weight on the card through kernel 1, and no
+   plain pack (``bitslice.slice_and_pack`` or ``pack_bits``) may run on a
+   CUDA tensor anywhere on a served path (phases 4, 5 and 7). The warm run keeps
    the operands of kernel 3's call at each distinct geometry; they must be
    ``SERVED_CONVS`` at buckets of 8 and 4, and each is then held with
    ``torch.equal`` against the plain version at its own launch plan
@@ -67,8 +81,10 @@ failed phase, without a GPU, or outside a checkout.
    requests with prompts of 64-512 tokens on 4 slots, greedy, a warm run
    and a timed run with the launch counts set to 0 just before it and read
    just after; prints prefill and decode tok/s and the ms of a decode_n
-   dispatch, checks the path's kernels launched and the logits are finite,
-   then profiles one admission and one decode dispatch for the idle share.
+   dispatch and the peak device memory from deploy on, checks the path's
+   kernels launched (and, at <8:8>, that prepack packed every weight
+   through kernel 1) and the logits are finite, then profiles one
+   admission and one decode dispatch for the idle share.
 8. Serves rwkv6-3b at full width, 2 layers, float32, on the card and on
    the CPU from the same weights: a 48-token prompt (chunks 32 + 16, both
    through kernel 5 on the card) and 4 greedy tokens: equal tokens, and
@@ -194,6 +210,25 @@ SERVED_CONVS = {
         (14, 512, 512))],
 }
 SERVED_BUCKETS = (8, 4)
+
+# Rows (M, K, bits) of kernel 1, timed: the padded activation maps the
+# "cuda" paths pack at 224 px in a bucket of 8 (ResNet-50's stem, s0 3x3
+# and s1b0.c2 inputs; VGG19's conv1_1 and conv1_2 inputs).
+PACK_ROWS = [
+    (8 * 230 * 230, 3, 8), (8 * 58 * 58, 64, 8), (8 * 58 * 58, 128, 8),
+    (8 * 226 * 226, 3, 8), (8 * 226 * 226, 64, 8)]
+# Untimed rows of kernel 1: ragged K at every width it takes (1-16 bits),
+# K under a word, on a word, on four.
+PACK_EDGES = [*[(37, 70, b) for b in range(1, 17)], (5, 3, 12), (300, 3, 16),
+              (64, 256, 9), (33, 32, 16), (1, 1, 1)]
+# Rows (BH, S, D, chunk) of kernel 5, timed: a batch-1 prefill of rwkv6-3b
+# (40 heads of 64) at S = 16, 64, 256 and 512, and a batch-2 one.
+WKV_ROWS = [(40, 16, 64, 16), (40, 64, 64, 16), (40, 256, 64, 16),
+            (40, 512, 64, 16), (80, 256, 64, 16)]
+# Untimed: the reference test's sweep, and an odd S against the plan's
+# token batches.
+WKV_EDGES = [(2, 32, 8, 8), (6, 64, 16, 16), (1, 48, 32, 16), (4, 128, 16, 32),
+             (3, 80, 64, 16), (2, 96, 64, 32), (5, 40, 8, 8)]
 
 KERNEL_INFO = {
     "bitplane_pack": dict(
@@ -338,6 +373,8 @@ class KernelChecks:
         from repro_torch.kernels import bitplane_pack as kp
 
         q = self._codes((m, k), bits)
+        if bits > 8:   # the top bit too, as a code of the full width
+            q[0, :] = 2**bits - 1
         kw = (k + 31) // 32
         self._record(
             "bitplane_pack", dict(M=m, K=k), f"{bits} planes",
@@ -534,18 +571,25 @@ class KernelChecks:
             plan=self._conv_plan(geo["n"] * geo["oh"], geo["ow"], cw,
                                  geo["c"], o, kh, kw, geo["stride"]))
 
-    def wkv(self, bh, s, d, chunk, timing=True):
+    def wkv(self, bh, s, d, chunk, timing=True, strided=False):
         """Kernel 5 against its plain chunked version on the reference
         test's distributions: y within 1e-4 of max|y| and the state within
-        1e-3 absolute (float32 sums in another order)."""
+        1e-3 absolute (float32 sums in another order). ``strided``: r, k,
+        v and lw are (H, S, D) views of (1, S, H, D) tensors, the layout
+        a batch-1 prefill hands the kernel."""
         torch = self.torch
         from repro_torch.kernels import rwkv_chunk as kw
 
         def randn(*shape):
             return torch.randn(shape, generator=self.gen, device="cuda")
 
-        r, k, v = (randn(bh, s, d) * 0.5 for _ in range(3))
-        lw = torch.clamp_min(-torch.exp(randn(bh, s, d) - 2), -5.0)
+        def rows(*shape):
+            if not strided:
+                return randn(*shape)
+            return randn(1, s, bh, d).permute(0, 2, 1, 3).reshape(bh, s, d)
+
+        r, k, v = (rows(bh, s, d) * 0.5 for _ in range(3))
+        lw = torch.clamp_min(-torch.exp(rows(bh, s, d) - 2), -5.0)
         a = (r, k, v, lw, randn(bh, d) * 0.2, randn(bh, d, d) * 0.1)
         y, s_fin = kw.wkv_chunked(*a, chunk=chunk)
         y_want, s_want = kw.wkv_chunked_plain(*a, chunk)
@@ -553,12 +597,20 @@ class KernelChecks:
         y_err = (y - y_want).abs().max().item()
         s_err = (s_fin - s_want).abs().max().item()
         shape = dict(BH=bh, S=s, D=d, chunk=chunk)
+        if strided:
+            shape["layout"] = "(1, S, H, D) view"
         if not (y_err <= 1e-4 * y_want.abs().max().item()
                 and s_err <= 1e-3):
             raise AssertionError(f"wkv_chunked {shape}: kernel != plain "
                                  f"(y {y_err}, state {s_err})")
         row = dict(kernel="wkv_chunked", shape=shape, bits="float32",
                    max_abs_err=y_err, state_max_abs_err=s_err)
+        if hasattr(kw, "_plan"):     # a tree before kernel 5 had a plan
+            plan = kw._plan(bh, s, d, chunk,
+                            kw._sm_count(torch.device("cuda", 0)))
+            row["plan"] = dict(plan._asdict(), blocks=bh * (d // plan.cols),
+                               smem_bytes=kw.smem_bytes(d, plan.cols,
+                                                        plan.tokens, chunk))
         if timing:
             # Each input read once, each output written once; the work is
             # the chunked algebra's multiply-adds (the strict lower A and
@@ -714,6 +766,106 @@ class recorded_convs:
         self.module.conv2d_bitserial_fused = self.kernel
 
 
+class prepack_packs:
+    """While open, counts prepack's weight packs (``core.packed.
+    pack_planes``, which ``prepack`` and ``prepack_conv`` call) on CUDA
+    tensors, and kernel 1's launches inside them; :meth:`check` fails
+    unless there were some and each launched kernel 1 once."""
+
+    def __enter__(self):
+        from repro_torch.core import packed
+        from repro_torch.kernels import bitplane_pack as kp
+
+        self.module, self.real = packed, packed.pack_planes
+        self.packs = self.launches = 0
+
+        def spy(q, bits):
+            before = kp.launches
+            out = self.real(q, bits)
+            if q.is_cuda:
+                self.packs += 1
+                self.launches += kp.launches - before
+            return out
+
+        packed.pack_planes = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.pack_planes = self.real
+
+    def check(self, label):
+        if not self.packs or self.launches != self.packs:
+            raise AssertionError(f"{label}: prepack packed {self.packs} "
+                                 f"weights on the card with {self.launches} "
+                                 "launches of kernel 1")
+        return dict(prepack_packs=self.packs,
+                    prepack_bitplane_pack_launches=self.launches)
+
+
+class no_plain_pack:
+    """While open, the plain pack (``bitslice.slice_and_pack`` and
+    ``pack_bits``) raises on a CUDA tensor: on the served paths kernel 1
+    packs on the card."""
+
+    def __enter__(self):
+        from repro_torch.core import bitslice
+
+        self.module = bitslice
+        self.real = {n: getattr(bitslice, n)
+                     for n in ("slice_and_pack", "pack_bits")}
+
+        def guard(name):
+            def fn(x, *a, **k):
+                if x.is_cuda:
+                    raise AssertionError(f"plain {name} ran on a CUDA tensor "
+                                         f"{tuple(x.shape)} on a served path")
+                return self.real[name](x, *a, **k)
+            return fn
+
+        for name in self.real:
+            setattr(bitslice, name, guard(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.module, name, fn)
+
+
+def prepack_layouts(torch):
+    """One linear and one conv weight prepacked on the card at 8 and 16
+    bits: the planes of each layout (linear, conv ``mat``, conv ``fused``)
+    equal the plain version's on the same codes bit for bit, and every
+    pack launched kernel 1."""
+    from repro_torch.core import packed
+    from repro_torch.kernels import bitplane_pack as kp
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for bits in (8, 16):
+        lin = torch.randn((2560, 1000), generator=gen, device="cuda")
+        conv = torch.randn((3, 3, 64, 96), generator=gen, device="cuda")
+        with prepack_packs() as spy:
+            pl = packed.prepack(lin, bits)
+            pc = packed.prepack_conv(conv, bits)
+        kh, kw, c, o = conv.shape
+        codes = pc.mat.codes.reshape(kh, kw, c, o)
+        want = {
+            "linear": (pl.planes, kp.bitplane_pack_plain(
+                pl.codes.T.contiguous(), bits)),
+            "conv mat": (pc.mat.planes, kp.bitplane_pack_plain(
+                pc.mat.codes.T.contiguous(), bits)),
+            "conv fused": (pc.fused_planes, kp.bitplane_pack_plain(
+                codes.permute(0, 3, 1, 2).contiguous(), bits).permute(
+                    1, 0, 2, 3, 4))}
+        for layout, (got, plain) in want.items():
+            if got.shape != plain.shape or not torch.equal(got, plain):
+                raise AssertionError(f"prepack {layout} at {bits} bits: "
+                                     "kernel 1's planes != plain")
+        rows.append(dict(bits=bits, layouts=sorted(want),
+                         **spy.check(f"prepack at {bits} bits")))
+    print(json.dumps(dict(prepack_planes_equal_plain=rows)), flush=True)
+
+
 def served_conv_calls(model) -> list:
     """(N, Hp, C, O, k, stride, OH) of each distinct kernel-3 call of
     ``model``'s served path at the buckets of ``SERVED_BUCKETS``: the convs
@@ -761,8 +913,9 @@ def serve_path(torch, np, ops, eng, model, backend, imgs, request_cls):
         torch.cuda.synchronize()
         return sorted(done, key=lambda c: c.rid), time.perf_counter() - t
 
-    with recorded_convs() as convs:
+    with recorded_convs() as convs, prepack_packs() as packs:
         serve(len(imgs))
+    packed = packs.check(f"{model}/{backend} prepack")
     ops.reset_launch_counts()
     done, dt = serve(len(imgs))
     launches = ops.launch_counts()
@@ -786,7 +939,7 @@ def serve_path(torch, np, ops, eng, model, backend, imgs, request_cls):
         serving=model, backend=backend, image=imgs.shape[1],
         precision="<8:8>", requests=12, buckets=[8, 4], seconds=dt,
         img_per_s=12 / dt, launches=launches,
-        launches_per_bucket_of_8=ops.launch_counts(),
+        launches_per_bucket_of_8=ops.launch_counts(), **packed,
         bucket_of_8_wall_ms=walls)), flush=True)
     prof = profile_bucket(torch, eng, imgs[:8], request_cls, model)
     prof["idle_share_unprofiled"] = 1 - prof["device_ms"] / float(
@@ -854,11 +1007,14 @@ def serve_lm(torch, np, ops, cfg, params, label, max_new, warm_requests):
     prompts = lm_prompts(np, cfg.vocab)
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    eng = ServeEngine(cfg, params, max_batch=LM_MAX_BATCH,
-                      max_len=LM_MAX_LEN,
-                      sampler=SamplerConfig(temperature=0.0), device="cuda")
+    with prepack_packs() as packs:
+        eng = ServeEngine(cfg, params, max_batch=LM_MAX_BATCH,
+                          max_len=LM_MAX_LEN,
+                          sampler=SamplerConfig(temperature=0.0),
+                          device="cuda")
     torch.cuda.synchronize()
     deploy_s = time.perf_counter() - t
+    packed = packs.check(f"rwkv6-3b {label} prepack") if cfg.pim else {}
     stats = {}
     admit, decode_n = eng._admit, eng._decode_n
 
@@ -927,7 +1083,7 @@ def serve_lm(torch, np, ops, cfg, params, label, max_new, warm_requests):
         decode_dispatch_ms={n: float(np.median(v))
                             for n, v in stats["dispatch_ms"].items()},
         decode_dispatches={n: len(v) for n, v in stats["dispatch_ms"].items()},
-        launches=launches,
+        launches=launches, **packed,
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(json.dumps(row), flush=True)
     # One admission of a 256-token prompt (one chunk) and one decode
@@ -1145,7 +1301,12 @@ def backends_agree(torch, m, k, n, bits):
                           bits=f"<{bits}:{bits}>")), flush=True)
 
 
-def main() -> int:
+def main(argv) -> int:
+    kernel_rows = "--kernel-rows" in argv
+    unknown = [a for a in argv if a != "--kernel-rows"]
+    if unknown:
+        print(f"chip_smoke.py: unknown arguments {unknown}", file=sys.stderr)
+        return 2
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: run it from the root of a checkout "
               "(src/repro_torch not found)", file=sys.stderr)
@@ -1183,7 +1344,8 @@ def main() -> int:
                 print(f"--- nvcc {name} ---\n{log.read_text().strip()}",
                       flush=True)
         for name in ("bitserial_matmul", "conv2d_fused"):
-            check_imma_build(_build, name)
+            if not kernel_rows:
+                check_imma_build(_build, name)
 
     # -- 3. kernels against their plain versions -----------------------------
     props = torch.cuda.get_device_properties(0)
@@ -1192,27 +1354,38 @@ def main() -> int:
           f"{INT8_OPS_PER_S:.4g} op/s; {props.multi_processor_count} SMs at "
           f"{clock_mhz:.0f} MHz", flush=True)
     kc = KernelChecks(torch, clock_mhz * 1e6)
+    if kernel_rows:
+        with phase("kernels 1 and 5, timed rows"):
+            for row in PACK_ROWS:
+                kc.pack(*row)
+            for row in WKV_ROWS:
+                kc.wkv(*row)
+        return 0
     with phase("kernels"):
-        # ResNet-50 shapes at 224 px, bucket of 8, <8:8>.
-        kc.pack(8 * 230 * 230, 3, 8)          # stem input, C=3 -> one word
-        kc.pack(8 * 58 * 58, 64, 8)           # s0 3x3 input
-        kc.pack(8 * 58 * 58, 128, 8)          # s1b0.c2 input
+        # Kernel 1: the served input maps at 224 px, bucket of 8, <8:8>;
+        # ragged rows at 1-16 bits.
+        for row in PACK_ROWS:
+            kc.pack(*row)
+        for row in PACK_EDGES:
+            kc.pack(*row, timing=False)
+        prepack_layouts(torch)
         # Kernel 3: the served convs, the ragged rows, the wrap.
         for row in CONV_ROWS:
             kc.conv(*row, 8, 8)
         for bits in (2, 4, 8):
-            kc.pack(37, 70, bits, timing=False)
             for row in RAGGED_CONV_ROWS:
                 kc.conv(*row, bits, bits, timing=False)
         kc.conv_wrap(*CONV_WRAP_ROW)
         backends_agree(torch, 8 * 55 * 55, 363, 96, 8)   # AlexNet conv1
-        # rwkv6-3b: kernel 5 at a batch-1 prefill's shapes (40 heads of 64)
-        # and the reference test's sweep.
-        for s in (16, 64, 256):
-            kc.wkv(40, s, 64, 16)
-        for bh, s, d, chunk in ((2, 32, 8, 8), (6, 64, 16, 16),
-                                (1, 48, 32, 16), (4, 128, 16, 32)):
-            kc.wkv(bh, s, d, chunk, timing=False)
+        # rwkv6-3b: kernel 5 at the prefills' shapes (40 heads of 64), on
+        # the batch-1 layout's strided views, and the reference test's
+        # sweep.
+        for row in WKV_ROWS:
+            kc.wkv(*row)
+        kc.wkv(40, 256, 64, 16, timing=False, strided=True)
+        kc.wkv(8, 48, 32, 16, timing=False, strided=True)
+        for row in WKV_EDGES:
+            kc.wkv(*row, timing=False)
         # Kernels 2 and 4: the served shapes, the plan's edges, the wrap.
         for m, k, n, wb, ab, timing in FUSED_ROWS:
             kc.matmul(m, k, n, wb, ab, timing=timing)
@@ -1224,13 +1397,13 @@ def main() -> int:
         (12, 224, 224, 3)).astype(np.float32)
 
     # -- 4. serving ResNet-50 -------------------------------------------------
-    with phase("serve resnet50 cuda"):
+    with phase("serve resnet50 cuda"), no_plain_pack():
         params = resnet.init(torch.Generator().manual_seed(0),
                              num_classes=1000, image=224)
         eng = VisionEngine({"resnet50": params}, backend="cuda", max_batch=8)
         done, launches, convs = serve_path(torch, np, ops, eng, "resnet50",
                                            "cuda", imgs, VisionRequest)
-    with phase("serve resnet50 float"):
+    with phase("serve resnet50 float"), no_plain_pack():
         fdone = None
         for _ in range(2):                          # warm, then timed
             for rid in range(len(imgs)):
@@ -1253,7 +1426,7 @@ def main() -> int:
     for model, module, backend in (("alexnet", alexnet, "cuda"),
                                    ("alexnet", alexnet, "popcount"),
                                    ("vgg19", vgg, "cuda")):
-        with phase(f"serve {model} {backend}"):
+        with phase(f"serve {model} {backend}"), no_plain_pack():
             params = module.init(torch.Generator().manual_seed(0),
                                  num_classes=1000, image=224)
             eng = VisionEngine({model: params}, backend=backend, max_batch=8)
@@ -1281,7 +1454,7 @@ def main() -> int:
     from repro_torch.models.lm import model as lm
 
     arch = get_config("rwkv6-3b").model
-    with phase("serve rwkv6-3b bf16"):
+    with phase("serve rwkv6-3b bf16"), no_plain_pack():
         params = lm.cast_params(
             lm.init(arch, torch.Generator(device="cuda").manual_seed(0),
                     device="cuda"), torch.bfloat16)
@@ -1289,7 +1462,7 @@ def main() -> int:
                                max_new=32, warm_requests=8)
         del params
         torch.cuda.empty_cache()
-    with phase("serve rwkv6-3b <8:8> cuda"):
+    with phase("serve rwkv6-3b <8:8> cuda"), no_plain_pack():
         cfg = dataclasses.replace(arch, dtype="float32",
                                   pim=PIMQuantConfig(8, 8, backend="cuda"))
         params = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0),
@@ -1328,4 +1501,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

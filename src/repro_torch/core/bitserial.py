@@ -105,7 +105,7 @@ def int_matmul_direct(qa: torch.Tensor, qw: torch.Tensor, a_bits: int = 0,
 def _pack_codes(qw: torch.Tensor, wq: QuantParams) -> PackedWeight:
     """Weight codes (K, N) as a PackedWeight (planes of ``qw.T``)."""
     return PackedWeight(
-        codes=qw, planes=bitslice.slice_and_pack(qw.T.contiguous(), wq.bits),
+        codes=qw, planes=_kernels().pack_planes(qw.T.contiguous(), wq.bits),
         col_sums=qw.sum(0).to(torch.int32), wq=wq)
 
 

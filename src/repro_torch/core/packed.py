@@ -10,7 +10,8 @@ and the precomputed column sums of the affine correction.
 (KH, KW, C, O) convolution weight, which additionally carries the
 channel-packed per-kernel-row planes consumed by the fused implicit-im2col
 kernel (:mod:`repro_torch.kernels.conv2d_fused`). Planes are int32 bit
-patterns (see :mod:`.bitslice`).
+patterns (see :mod:`.bitslice`), packed by ``kernels.ops.pack_planes``: on
+a CUDA tensor kernel 1, on a CPU tensor its plain version.
 """
 from __future__ import annotations
 
@@ -18,8 +19,14 @@ import dataclasses
 
 import torch
 
-from . import bitslice
 from .quantize import QuantParams, calibrate_minmax, dequantize, quantize
+
+
+def pack_planes(q: torch.Tensor, bits: int) -> torch.Tensor:
+    """Codes (M, K) -> planes (bits, M, ceil(K/32)) (``ops.pack_planes``)."""
+    from repro_torch.kernels import ops   # lazy: the kernels import core
+
+    return ops.pack_planes(q, bits)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,7 +97,7 @@ def prepack(w: torch.Tensor, w_bits: int) -> PackedWeight:
     """Quantize + bit-slice + lane-pack a (K, N) weight once."""
     wq = calibrate_minmax(w, w_bits)
     codes = quantize(w, wq)
-    planes = bitslice.slice_and_pack(codes.T.contiguous(), w_bits)
+    planes = pack_planes(codes.T.contiguous(), w_bits)
     return PackedWeight(codes=codes, planes=planes,
                         col_sums=codes.sum(0).to(torch.int32), wq=wq)
 
@@ -103,13 +110,14 @@ def prepack_conv(w: torch.Tensor, w_bits: int) -> PackedConvWeight:
     flat = codes.reshape(kh * kw * c, o)                 # im2col order
     mat = PackedWeight(
         codes=flat,
-        planes=bitslice.slice_and_pack(flat.T.contiguous(), w_bits),
+        planes=pack_planes(flat.T.contiguous(), w_bits),
         col_sums=flat.sum(0).to(torch.int32),
         wq=wq,
     )
     # Fused layout: per kernel row kh, O-major, channels packed into words.
     wt = codes.permute(0, 3, 1, 2).contiguous()          # (KH, O, KW, C)
-    fused = bitslice.slice_and_pack(wt, w_bits)          # (bits, KH, O, KW, CW)
+    fused = pack_planes(wt.reshape(kh * o * kw, c), w_bits).reshape(
+        w_bits, kh, o, kw, -1)                           # (bits, KH, O, KW, CW)
     fused = fused.permute(1, 0, 2, 3, 4).contiguous()    # (KH, bits, O, KW, CW)
     return PackedConvWeight(mat=mat, fused_planes=fused,
                             kernel_shape=(kh, kw, c, o))

@@ -50,30 +50,15 @@ __device__ __forceinline__ void store8(uint32_t* dst, const uint32_t (&x)[8]) {
 
 // The 32 codes of one row's 32-K group from its staged planes (plane b at
 // p[b * plane_stride], bit j the code of k = j) into dst[0..7], word q
-// holding in byte i the code of k = q + 8i. Viewing the 256 bits by (word
-// b, bit j), three rounds swap bit s of the word index with bit s of the
-// bit position, which leaves bit b of code j in word j % 8 at bit
-// 8 * (j / 8) + b.
+// holding in byte i the code of k = q + 8i (transpose_8x32), which leaves
+// bit b of code j in word j % 8 at bit 8 * (j / 8) + b.
 __device__ __forceinline__ void planes_to_u8(const uint32_t* p,
                                              int plane_stride, int bits,
                                              uint32_t (&dst)[8]) {
   uint32_t x[8];
 #pragma unroll
   for (int b = 0; b < kMaxBits; ++b) x[b] = b < bits ? p[b * plane_stride] : 0;
-#pragma unroll
-  for (int s = 0; s < 3; ++s) {
-#pragma unroll
-    for (int w = 0; w < 8; ++w) {
-      if (!(w & (1 << s))) {
-        const int w2 = w | (1 << s);
-        const uint32_t mask =
-            s == 0 ? 0x55555555u : s == 1 ? 0x33333333u : 0x0f0f0f0fu;
-        const uint32_t d = ((x[w] >> (1 << s)) ^ x[w2]) & mask;
-        x[w2] ^= d;
-        x[w] ^= d << (1 << s);
-      }
-    }
-  }
+  transpose_8x32(x);
 #pragma unroll
   for (int q = 0; q < 8; ++q) dst[q] = x[q];
 }

@@ -87,8 +87,9 @@ def _chunked_wkv(r, k, v, w, u, S0, L: int):
     r, k, v (B, S, H, D) float32; w (B, S, H, D) in (0, 1); u (H, D); S0
     (B, H, D, D). The log decay is computed as the JAX package's
     ``_chunked_wkv`` computes it, ``max(log(max(w, 1e-38)), -5)``, and the
-    heads are laid out as (B*H, S, D) for the kernel. Returns (y (B, S, H,
-    D), S_final (B, H, D, D)).
+    heads are laid out as (B*H, S, D) for the kernel: at B = 1 a view, which
+    the kernel reads through its strides and whose y it writes back in the
+    (B, S, H, D) layout. Returns (y (B, S, H, D), S_final (B, H, D, D)).
     """
     b, s, h, d = r.shape
     lw = torch.clamp_min(torch.log(torch.clamp_min(w, 1e-38)), _LOG_W_MIN)

@@ -43,6 +43,61 @@ def test_pack_kernel_equals_plain(gen, m, k, bits):
     assert torch.equal(kp.bitplane_pack(q, bits), kp.bitplane_pack_plain(q, bits))
 
 
+@pytest.mark.parametrize("bits", range(1, 17))
+@pytest.mark.parametrize("m,k", [(37, 70), (5, 3), (9, 64)])
+def test_pack_kernel_equals_plain_at_every_width(gen, m, k, bits):
+    """1-16 planes, K ragged, under a word and on words (the 16-byte
+    loads); the full-width code and the bits above ``bits`` too."""
+    q = torch.randint(-2**20, 2**20, (m, k), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    q[0] = 2**bits - 1
+    before = kp.launches
+    got = kp.bitplane_pack(q, bits)
+    assert kp.launches == before + 1
+    assert torch.equal(got, kp.bitplane_pack_plain(q, bits))
+
+
+def test_pack_kernel_at_the_stem_and_rejects_past_16_bits(gen):
+    q = _codes(gen, (8 * 230 * 230, 3), 8)
+    assert torch.equal(kp.bitplane_pack(q, 8), kp.bitplane_pack_plain(q, 8))
+    q = _codes(gen, (8, 40), 8)
+    with pytest.raises(ValueError, match="1..16"):
+        kp.bitplane_pack(q, 17)
+    assert torch.equal(kp.bitplane_pack(q[:, 1:], 8),        # unaligned rows
+                       kp.bitplane_pack_plain(q[:, 1:], 8))
+
+
+@pytest.mark.parametrize("bits", [2, 8, 12, 16])
+def test_prepack_on_cuda_packs_through_kernel_1(gen, monkeypatch, bits):
+    """prepack, prepack_conv (both layouts) and _pack_codes on the card
+    launch kernel 1 for every pack, never the plain pack, and give the
+    CPU's planes bit for bit."""
+    from repro_torch.core import bitserial as tbs
+    from repro_torch.core import bitslice
+
+    lin = torch.randn((300, 70), generator=gen, device="cuda")
+    conv = torch.randn((3, 3, 40, 24), generator=gen, device="cuda")
+    qw = _codes(gen, (100, 24), bits)
+    want = (prepack(lin.cpu(), bits), prepack_conv(conv.cpu(), bits))
+
+    def banned(*a, **k):
+        raise AssertionError("plain pack on the card")
+
+    monkeypatch.setattr(bitslice, "slice_and_pack", banned)
+    monkeypatch.setattr(bitslice, "pack_bits", banned)
+    before = kp.launches
+    pl, pc = prepack(lin, bits), prepack_conv(conv, bits)
+    pq = tbs._pack_codes(qw, pl.wq)
+    assert kp.launches == before + 4
+    monkeypatch.undo()
+    for got, ref in ((pl.planes, want[0].planes),
+                     (pc.mat.planes, want[1].mat.planes),
+                     (pc.fused_planes, want[1].fused_planes)):
+        assert torch.equal(got.cpu(), ref)
+    assert torch.equal(pq.planes.cpu(), tbs._pack_codes(qw.cpu(), pl.wq.to(
+        "cpu")).planes)
+
+
 @pytest.mark.parametrize("m,k,n", [(37, 70, 131), (8, 2048, 1000),
                                    (130, 576, 64)])
 @pytest.mark.parametrize("bits", [2, 4, 8])
@@ -351,7 +406,9 @@ def _wkv_inputs(gen, bh, s, d):
 
 @pytest.mark.parametrize("bh,s,d,chunk", [
     (2, 32, 8, 8), (6, 64, 16, 16), (1, 48, 32, 16), (4, 128, 16, 32),
-    (40, 16, 64, 16), (40, 64, 64, 16), (40, 256, 64, 16)])  # rwkv6-3b
+    (3, 80, 64, 16), (2, 96, 64, 32), (5, 40, 8, 8),
+    (40, 16, 64, 16), (40, 64, 64, 16), (40, 256, 64, 16),  # rwkv6-3b
+    (40, 512, 64, 16), (80, 256, 64, 16)])
 def test_wkv_kernel_equals_plain(gen, bh, s, d, chunk):
     """Kernel 5 against its plain chunked version and the sequential scan
     at the reference's tolerances: y relative 1e-4, state absolute 1e-3."""
@@ -364,6 +421,37 @@ def test_wkv_kernel_equals_plain(gen, bh, s, d, chunk):
         rel = (y - y_want).abs().max() / (y_want.abs().max() + 1e-9)
         assert rel < 1e-4
         assert (s_fin - s_want).abs().max() < 1e-3
+
+
+@pytest.mark.parametrize("h,s,d", [(40, 256, 64), (8, 48, 32)])
+def test_wkv_kernel_reads_strided_views(gen, h, s, d):
+    """(H, S, D) views of (1, S, H, D) tensors, the batch-1 prefill's
+    layout: read in place, y written back in that layout, equal to the
+    plain version on the same views."""
+    def view():
+        return torch.randn((1, s, h, d), generator=gen,
+                           device="cuda").permute(0, 2, 1, 3).reshape(h, s, d)
+    r, k, v = (view() * 0.5 for _ in range(3))
+    lw = torch.clamp_min(-torch.exp(view() - 2), -5.0)
+    assert r.stride() == (d, h * d, 1)
+    a = (r, k, v, lw, torch.randn((h, d), generator=gen, device="cuda") * 0.2,
+         torch.randn((h, d, d), generator=gen, device="cuda") * 0.1)
+    y, s_fin = kw.wkv_chunked(*a, chunk=16)
+    assert y.stride() == r.stride()
+    y_want, s_want = kw.wkv_chunked_plain(*a, 16)
+    rel = (y - y_want).abs().max() / (y_want.abs().max() + 1e-9)
+    assert rel < 1e-4
+    assert (s_fin - s_want).abs().max() < 1e-3
+
+
+def test_wkv_library_reports_the_plans_shared_memory(gen):
+    lib = kw._library()
+    for bh, s, d, chunk in ((40, 256, 64, 16), (80, 512, 64, 16),
+                            (40, 16, 64, 16), (1, 48, 32, 16),
+                            (5, 40, 8, 8), (4, 128, 16, 32)):
+        plan = kw._plan(bh, s, d, chunk, kw._sm_count(torch.device("cuda")))
+        assert lib.repro_wkv_chunked_smem(d, plan.cols, plan.tokens, chunk) \
+            == kw.smem_bytes(d, plan.cols, plan.tokens, chunk)
 
 
 def test_wkv_kernel_rejects_what_it_does_not_take(gen):

@@ -37,6 +37,51 @@ def test_pack_planes_bit_exact(m, k, bits):
     assert_bits_equal(got, jops.pack_planes(jnp.asarray(q), bits))
 
 
+@pytest.mark.parametrize("bits", range(9, 17))
+@pytest.mark.parametrize("m,k", [(8, 32), (5, 70), (37, 3), (16, 96)])
+def test_pack_planes_bit_exact_past_8_bits(m, k, bits):
+    """Codes of 9-16 bits, the widest the precision sweep packs, K ragged
+    against the word: equal to the Pallas kernel in interpret mode."""
+    q = _codes((m, k), bits, seed=m * k + bits)
+    q[0] = 2**bits - 1
+    got = tops.pack_planes(t(q), bits)
+    assert tuple(got.shape) == (bits, m, (k + 31) // 32)
+    assert_bits_equal(got, jops.pack_planes(jnp.asarray(q), bits))
+
+
+@pytest.mark.parametrize("bits", [2, 8, 16])
+def test_prepack_packs_through_the_kernel_1_wrapper(monkeypatch, bits):
+    """prepack, prepack_conv (both layouts) and _pack_codes pack every
+    weight through ``kernels.bitplane_pack.bitplane_pack`` (kernel 1 on a
+    CUDA tensor), with planes equal to the JAX package's prepack."""
+    from repro_torch.core import bitserial as tbs
+    from repro_torch.kernels import bitplane_pack as kp
+
+    calls = []
+    real = kp.bitplane_pack
+
+    def spy(q, b):
+        calls.append((tuple(q.shape), b))
+        return real(q, b)
+
+    monkeypatch.setattr(kp, "bitplane_pack", spy)
+    rng = np.random.default_rng(bits)
+    w = rng.standard_normal((70, 24)).astype(np.float32)
+    cw = rng.standard_normal((3, 3, 40, 9)).astype(np.float32)
+    tp, tc = tpk.prepack(t(w), bits), tpk.prepack_conv(t(cw), bits)
+    assert calls == [((24, 70), bits), ((9, 360), bits), ((81, 40), bits)]
+    jp, jc = jpk.prepack(jnp.asarray(w), bits), jpk.prepack_conv(
+        jnp.asarray(cw), bits)
+    assert_bits_equal(tp.planes, jp.planes)
+    assert_bits_equal(tc.mat.planes, jc.mat.planes)
+    assert_bits_equal(tc.fused_planes, jc.fused_planes)
+    qw = _codes((70, 24), bits, seed=3)
+    pq = tbs._pack_codes(t(qw), tp.wq)
+    assert calls[-1] == ((24, 70), bits)
+    assert_bits_equal(pq.planes, jops.pack_planes(
+        jnp.asarray(np.ascontiguousarray(qw.T)), bits))
+
+
 @pytest.mark.parametrize("m,k,nn", [(8, 32, 8), (16, 64, 128), (32, 96, 16),
                                     (5, 70, 131), (3, 256, 1000)])
 @pytest.mark.parametrize("bits", [2, 4, 8])
@@ -142,8 +187,8 @@ def test_wrappers_reject_bad_operands_and_other_devices():
     with pytest.raises(ValueError, match="exceeds"):
         tops.bitserial_matmul(torch.zeros((4, 70), dtype=torch.int32),
                               a_bits=4, w_bits=4, pw=pw)
-    with pytest.raises(ValueError, match="1..8"):
-        tops.pack_planes(q, 9)
+    with pytest.raises(ValueError, match="1..16"):
+        tops.pack_planes(q, 17)
     with pytest.raises(ValueError, match="weight words"):
         tops.conv2d_bitserial(torch.zeros((1, 5, 5, 40), dtype=torch.int32),
                               torch.zeros((3, 4, 2, 3, 1), dtype=torch.int32),
