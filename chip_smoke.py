@@ -36,14 +36,18 @@ failed phase, without a GPU, or outside a checkout.
    ``PACKED_ROWS``: every projection shape of rwkv6-3b (K x N of 2560 x
    2560, 2560 x 8960, 8960 x 2560 and the head's 2560 x 65536) at prefill
    M = 256, 16 and 1 and at decode M = 4, K = N = 2560 for each other
-   power-of-two chunk, the edges of their launch plan (each row prints
-   its tile and K splits), and ``WRAP_ROW`` (all codes 255, P past 2^31).
+   power-of-two chunk; every projection shape of llama3.2-3b (3072 x 3072,
+   3072 x 1024, 3072 x 8192, 8192 x 3072) at M = 256, 16 and 4 and its
+   tied head 3072 x 128256 at M = 1 and 4; the edges of their launch plan
+   (each row prints its tile and K splits), and ``WRAP_ROW`` (all codes
+   255, P past 2^31).
    Then holds the four Eq. 1 backends' P equal to each other at AlexNet
    conv1's im2col shape, and kernel 5 against its plain version at a
    batch-1 prefill's shapes (40 heads of 64, S = 16, 64, 256, 512), a
    batch-2 prefill (BH = 80), on strided (H, S, D) views of (1, S, H, D)
    tensors, and at the reference test's sweep (each row prints its launch
-   plan). Kernel 1 is held at ResNet-50's and VGG19's input shapes and at
+   plan). Kernel 1 is held at ResNet-50's and VGG19's input shapes, at the
+   tied head's pack of <8:8> llama3.2-3b (128,256 rows of K = 3072) and at
    ragged rows of 1-16 bits.
    Then prepacks one linear and one conv weight on the card at 8 and 16
    bits: the planes of each layout (linear, conv ``mat``, conv ``fused``)
@@ -83,16 +87,35 @@ failed phase, without a GPU, or outside a checkout.
    just after; prints prefill and decode tok/s and the ms of a decode_n
    dispatch and the peak device memory from deploy on, checks the path's
    kernels launched (and, at <8:8>, that prepack packed every weight
-   through kernel 1) and the logits are finite, then profiles one
-   admission and one decode dispatch for the idle share.
-8. Serves rwkv6-3b at full width, 2 layers, float32, on the card and on
-   the CPU from the same weights: a 48-token prompt (chunks 32 + 16, both
-   through kernel 5 on the card) and 4 greedy tokens: equal tokens, and
-   prefill logits within rtol 1e-3 and atol 1e-3*max|cpu|. Then one layer
-   at <8:8> on "cuda" against the CPU (prefill of two prompts into a
-   4-slot grid, two decode steps at M = 4): prepacked planes equal bit for
-   bit, every quantized product within 1e-5 of the CPU's on the same
-   input, logits within 0.1 in relative L2 (``lm_pim_gpu_vs_cpu``).
+   through kernel 1, one pack a projection) and the logits are finite,
+   then profiles one admission and one decode dispatch for the idle share.
+   Then serves llama3.2-3b the same way at its published width and depth
+   (28 layers, d_model 3072, 24 query and 8 KV heads of 128, d_ff 8192,
+   vocab 128,256, tied embeddings): bf16 (projections, scores and PV in
+   ``torch.matmul``, no bit-serial kernel may launch), then <8:8> on
+   "cuda" in float32 (every projection on kernel 2, prepacked through
+   kernel 1; the tied head quantized and packed through kernel 1 at every
+   call, then kernel 2), each followed by the device ms of the attention
+   core at the decode shape (path dtype and float32) and, at <8:8>, of the
+   tied head (``lm_part_costs``).
+   The warm run of each path serves the timed run's eight requests; at
+   <8:8> it keeps the operands of kernel 2's first call at each distinct
+   shape, which must be ``served_lm_matmuls`` (every projection at each
+   power-of-two chunk of the prompts, 1 to 256, and at decode's M = 4; the
+   head at M = 1 and 4), and each is then held with ``torch.equal``
+   against the plain version at its own launch plan (untimed; each row
+   prints its plan).
+8. Serves rwkv6-3b and llama3.2-3b at full width, 2 layers, float32, on
+   the card and on the CPU from the same weights: a 48-token prompt
+   (chunks 32 + 16; rwkv6-3b's through kernel 5 on the card) and 4 greedy
+   tokens: equal tokens, and prefill logits within rtol 1e-3 and atol
+   1e-3*max|cpu|; llama3.2-3b also with the int8 KV cache, where
+   ``quantize_kv`` on the first k tensor gives equal codes and scales on
+   both devices. Then one layer of each at <8:8> on "cuda" against the CPU
+   (prefill of two prompts into a 4-slot grid, two decode steps at M = 4):
+   prepacked planes equal bit for bit, every quantized product within
+   1e-5 of the CPU's on the same input, logits within 0.1 in relative L2
+   (``lm_pim_gpu_vs_cpu``).
 
 Kernel 5 (the chunked WKV) is float32 arithmetic that sums in another
 order than its plain version, so it is held to the reference's tolerances
@@ -125,8 +148,8 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 FP32_FLOPS_PER_S = 67e12      # float32 outside the tensor cores
 
-# rwkv6-3b serving: decode slots, and the longest prompt (512) plus 32 new
-# tokens.
+# LM serving (rwkv6-3b and llama3.2-3b): decode slots, and the longest
+# prompt (512) plus 32 new tokens.
 LM_MAX_BATCH = 4
 LM_MAX_LEN = 544
 
@@ -153,6 +176,12 @@ FUSED_ROWS = [
     *[(m, k, n, 8, 8, True) for m in (256, 16, LM_MAX_BATCH)
       for k, n in ((2560, 2560), (2560, 8960), (8960, 2560))],
     (1, 2560, 65536, 8, 8, True), (LM_MAX_BATCH, 2560, 65536, 8, 8, True),
+    # llama3.2-3b at the same M: K x N is 3072 x 3072 (wq, wo), 3072 x 1024
+    # (wk, wv), 3072 x 8192 (w_in, w_gate), 8192 x 3072 (w_out), and the
+    # tied head 3072 x 128256 (M = 1 in prefill).
+    *[(m, k, n, 8, 8, True) for m in (256, 16, LM_MAX_BATCH)
+      for k, n in ((3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072))],
+    (1, 3072, 128256, 8, 8, True), (LM_MAX_BATCH, 3072, 128256, 8, 8, True),
     *[(m, 2560, 2560, 8, 8, False) for m in (128, 64, 32, 8, 2, 1)],
     *MATMUL_EDGES]
 PACKED_ROWS = [
@@ -210,13 +239,25 @@ SERVED_CONVS = {
         (14, 512, 512))],
 }
 SERVED_BUCKETS = (8, 4)
+# K x N of the <8:8> projections of each served LM, and of its head. The
+# warm run of each <8:8> LM path serves the eight prompts of the timed run
+# and records the operands of kernel 2's first call at each distinct
+# shape, which must be ``served_lm_matmuls``; each is held against the
+# plain version at its own launch plan (``KernelChecks.served_matmul``).
+LM_PROJ_SHAPES = {
+    "rwkv6-3b": ((2560, 2560), (2560, 8960), (8960, 2560)),
+    "llama3.2-3b": ((3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072)),
+}
+LM_HEADS = {"rwkv6-3b": (2560, 65536), "llama3.2-3b": (3072, 128256)}
 
 # Rows (M, K, bits) of kernel 1, timed: the padded activation maps the
 # "cuda" paths pack at 224 px in a bucket of 8 (ResNet-50's stem, s0 3x3
-# and s1b0.c2 inputs; VGG19's conv1_1 and conv1_2 inputs).
+# and s1b0.c2 inputs; VGG19's conv1_1 and conv1_2 inputs), and the tied
+# head's weight codes that <8:8> llama3.2-3b packs at every call (128,256
+# vocabulary rows of K = 3072).
 PACK_ROWS = [
     (8 * 230 * 230, 3, 8), (8 * 58 * 58, 64, 8), (8 * 58 * 58, 128, 8),
-    (8 * 226 * 226, 3, 8), (8 * 226 * 226, 64, 8)]
+    (8 * 226 * 226, 3, 8), (8 * 226 * 226, 64, 8), (128256, 3072, 8)]
 # Untimed rows of kernel 1: ragged K at every width it takes (1-16 bits),
 # K under a word, on a word, on four.
 PACK_EDGES = [*[(37, 70, b) for b in range(1, 17)], (5, 3, 12), (300, 3, 16),
@@ -571,6 +612,20 @@ class KernelChecks:
             plan=self._conv_plan(geo["n"] * geo["oh"], geo["ow"], cw,
                                  geo["c"], o, kh, kw, geo["stride"]))
 
+    def served_matmul(self, arch, qa, pw, a_bits):
+        """Kernel 2 on operands a served LM path gave it, untimed: equal to
+        its plain version at that call's own launch plan."""
+        from repro_torch.kernels import bitserial_matmul as km
+
+        m, k = qa.shape
+        w_bits, n, kw = pw.shape
+        self._record(
+            "bitserial_matmul_fused", dict(served=arch, M=m, K=k, N=n),
+            f"<{w_bits}:{a_bits}>",
+            km.bitserial_matmul_fused(qa, pw, a_bits, w_bits),
+            km.bitserial_matmul_fused_plain(qa, pw, a_bits, w_bits), None,
+            None, None, 0, 0, timing=False, plan=self._plan(m, n, kw))
+
     def wkv(self, bh, s, d, chunk, timing=True, strided=False):
         """Kernel 5 against its plain chunked version on the reference
         test's distributions: y within 1e-4 of max|y| and the state within
@@ -766,6 +821,32 @@ class recorded_convs:
         self.module.conv2d_bitserial_fused = self.kernel
 
 
+class recorded_matmuls:
+    """While open, keeps a host copy of the operands of kernel 2's first
+    call at each distinct shape (all that its launch plan depends on) in
+    ``calls``, so that the path's device memory stays its own; every call
+    runs the kernel as before."""
+
+    def __enter__(self):
+        from repro_torch.kernels import bitserial_matmul as km
+
+        self.module, self.kernel = km, km.bitserial_matmul_fused
+        self.calls = {}
+
+        def spy(qa, pw, a_bits, w_bits):
+            key = (tuple(qa.shape), tuple(pw.shape), a_bits)
+            if key not in self.calls:
+                self.calls[key] = (qa.to("cpu", copy=True),
+                                   pw.to("cpu", copy=True), a_bits)
+            return self.kernel(qa, pw, a_bits, w_bits)
+
+        km.bitserial_matmul_fused = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.bitserial_matmul_fused = self.kernel
+
+
 class prepack_packs:
     """While open, counts prepack's weight packs (``core.packed.
     pack_planes``, which ``prepack`` and ``prepack_conv`` call) on CUDA
@@ -894,6 +975,35 @@ def check_served_convs(kc, model, calls):
         kc.served_conv(model, pa, pw, geo)
 
 
+def served_lm_matmuls(proj, head, lens) -> list:
+    """(M, K, N) of each distinct kernel-2 call of a <8:8> LM served
+    prompts of ``lens`` tokens on ``LM_MAX_BATCH`` slots: each projection
+    (K x N in ``proj``) at every power-of-two prefill chunk and at decode
+    (M = LM_MAX_BATCH), and the head (``head``) at a chunk's last token
+    (M = 1) and at decode."""
+    from repro_torch.serving.engine import _pow2_chunks
+
+    ms = {c for n in lens for c in _pow2_chunks(n)} | {LM_MAX_BATCH}
+    return sorted({(m, k, n) for k, n in proj for m in ms}
+                  | {(m, *head) for m in (1, LM_MAX_BATCH)})
+
+
+def check_served_matmuls(np, kc, arch, calls):
+    """The kernel-2 calls the warm run of ``arch``'s <8:8> path recorded
+    are ``served_lm_matmuls`` of its eight prompts, and each equals the
+    plain version."""
+    head = LM_HEADS[arch]
+    want = served_lm_matmuls(LM_PROJ_SHAPES[arch], head,
+                             [len(p) for p in lm_prompts(np, head[1])])
+    got = sorted((qa.shape[0], qa.shape[1], pw.shape[1])
+                 for qa, pw, _ in calls.values())
+    if got != want:
+        raise AssertionError(f"{arch}: kernel 2 ran at (M, K, N) {got}, "
+                             f"served_lm_matmuls gives {want}")
+    for qa, pw, a_bits in calls.values():
+        kc.served_matmul(arch, qa.cuda(), pw.cuda(), a_bits)
+
+
 def serve_path(torch, np, ops, eng, model, backend, imgs, request_cls):
     """One served path: a warm run (prepack, first launches), a timed run of
     every image with the launch counts set to 0 just before it and read just
@@ -981,9 +1091,57 @@ def gpu_vs_cpu(torch, np, module, model, backend, image):
                           max_abs_diff=err, max_abs_cpu=scale)), flush=True)
 
 
-# Kernels each served rwkv6-3b path must launch.
-LM_PATH_KERNELS = {"bf16": ("wkv_chunked",),
-                   "<8:8> cuda": ("wkv_chunked", "bitserial_matmul_fused")}
+# Kernels each served LM path must launch. A bf16 path launches none of
+# the bit-serial kernels (its projections are ``torch.matmul``); at <8:8>
+# llama3.2-3b packs its tied head through kernel 1 at every call.
+LM_PATH_KERNELS = {
+    ("rwkv6-3b", "bf16"): ("wkv_chunked",),
+    ("rwkv6-3b", "<8:8> cuda"): ("wkv_chunked", "bitserial_matmul_fused"),
+    ("llama3.2-3b", "bf16"): (),
+    ("llama3.2-3b", "<8:8> cuda"): ("bitserial_matmul_fused",
+                                    "bitplane_pack"),
+}
+BITSERIAL_KERNELS = ("bitplane_pack", "bitserial_matmul_fused",
+                     "bitserial_matmul_packed", "conv2d_bitserial_fused")
+
+def lm_part_costs(torch, cfg, params, label, clock_hz):
+    """Device ms (calls queued behind a spin) of two parts of a dense
+    model's decode step that the profile does not name on their own: the
+    attention core (scores, softmax, PV) of one layer at the decode shape
+    (``LM_MAX_BATCH`` slots against ``LM_MAX_LEN`` cached rows) with the
+    path's KV dtype, and again with float32 q, k and v (the difference is
+    the cost of the float32 upcasts); and at <8:8> the tied head at M =
+    ``LM_MAX_BATCH`` (quantize ``embed.T``, pack it through kernel 1,
+    kernel 2, the correction)."""
+    from repro_torch.models.lm import attention as A
+    from repro_torch.models.lm import model as M
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, hkv, d = LM_MAX_BATCH, cfg.n_kv_heads, cfg.head_dim
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    q = randn(b, 1, cfg.n_heads, d)
+    k, v = randn(b, LM_MAX_LEN, hkv, d), randn(b, LM_MAX_LEN, hkv, d)
+    mask = torch.ones((b, 1, 1, LM_MAX_LEN), dtype=torch.bool,
+                      device="cuda")
+    core = {"float32": device_ms(
+        lambda: A.gqa_scores_softmax_v(q, k, v, mask), 20, clock_hz)}
+    dt = M.torch_dtype(cfg.dtype)
+    if dt != torch.float32:
+        qd, kd, vd = q.to(dt), k.to(dt), v.to(dt)
+        core[str(dt).split(".")[-1]] = device_ms(
+            lambda: A.gqa_scores_softmax_v(qd, kd, vd, mask), 20, clock_hz)
+    row = dict(lm_part_costs=cfg.name, path=label, layers=cfg.n_layers,
+               attention_core_device_ms=core)
+    if cfg.pim and cfg.tie_embeddings:
+        x = randn(b, 1, cfg.d_model)
+        with torch.no_grad():
+            row["tied_head_device_ms"] = device_ms(
+                lambda: M.lm_head(params, cfg, x), 5, clock_hz)
+    print(json.dumps(row), flush=True)
+
 
 def lm_prompts(np, vocab: int) -> list:
     """Eight prompts of 64-512 tokens from numpy seed 0."""
@@ -993,17 +1151,23 @@ def lm_prompts(np, vocab: int) -> list:
             for n in lens]
 
 
-def serve_lm(torch, np, ops, cfg, params, label, max_new, warm_requests):
-    """One served rwkv6-3b path: a warm run of ``warm_requests`` requests,
-    then the timed run of eight with the launch counts set to 0 just before
-    it and read just after. Admission and decode dispatches are timed on
-    the host (each ends in a device-to-host read), for prefill and decode
-    tok/s. Then checks the path's kernels launched, the tokens and the
-    logits of one prefill, and profiles one admission plus one decode
-    dispatch of 8 steps for the device's idle share."""
+def serve_lm(torch, np, ops, cfg, params, label, max_new):
+    """One served LM path (``cfg.name`` is the arch): a warm run of the
+    eight requests, which keeps the operands of kernel 2's first call at
+    each distinct shape (``recorded_matmuls``), then the timed run of the
+    same eight with the launch counts set to 0 just before it and read just
+    after. Admission and decode dispatches are timed on the host (each ends
+    in a device-to-host read), for prefill and decode tok/s. Then checks
+    the path's kernels launched (``LM_PATH_KERNELS``; a bf16 path launches
+    no bit-serial kernel), that prepack packed every projection through
+    kernel 1 (at <8:8>), the tokens and the logits of one prefill, and
+    profiles one admission plus one decode dispatch of 8 steps for the
+    device's idle share. Returns the timed run's launches and the recorded
+    kernel-2 calls."""
     from repro_torch.models.lm import model as M
     from repro_torch.serving import Request, SamplerConfig, ServeEngine
 
+    arch = cfg.name
     prompts = lm_prompts(np, cfg.vocab)
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
@@ -1014,7 +1178,14 @@ def serve_lm(torch, np, ops, cfg, params, label, max_new, warm_requests):
                           device="cuda")
     torch.cuda.synchronize()
     deploy_s = time.perf_counter() - t
-    packed = packs.check(f"rwkv6-3b {label} prepack") if cfg.pim else {}
+    packed = {}
+    if cfg.pim:
+        packed = packs.check(f"{arch} {label} prepack")
+        n_proj = len(list(_packed_leaves(eng.params)))
+        if packed["prepack_packs"] != n_proj:
+            raise AssertionError(f"{arch} {label}: prepack packed "
+                                 f"{packed['prepack_packs']} weights on the "
+                                 f"card, the tree has {n_proj} projections")
     stats = {}
     admit, decode_n = eng._admit, eng._decode_n
 
@@ -1048,30 +1219,35 @@ def serve_lm(torch, np, ops, cfg, params, label, max_new, warm_requests):
         torch.cuda.synchronize()
         return sorted(done, key=lambda c: c.rid), time.perf_counter() - t
 
-    serve(warm_requests)
+    with recorded_matmuls() as matmuls:
+        serve(len(prompts))
     ops.reset_launch_counts()
     done, wall = serve(len(prompts))
     launches = ops.launch_counts()
     del eng._admit, eng._decode_n
     if [len(c.tokens) for c in done] != [max_new] * len(prompts) or not all(
             0 <= tok < cfg.vocab for c in done for tok in c.tokens):
-        raise AssertionError(f"rwkv6-3b {label}: wrong completions "
+        raise AssertionError(f"{arch} {label}: wrong completions "
                              f"{[(c.rid, len(c.tokens)) for c in done]}")
-    missing = [k for k in LM_PATH_KERNELS[label] if not launches[k]]
+    missing = [k for k in LM_PATH_KERNELS[(arch, label)] if not launches[k]]
     if missing:
-        raise AssertionError(f"rwkv6-3b {label}: {missing} never launched "
+        raise AssertionError(f"{arch} {label}: {missing} never launched "
                              f"on the main path: {launches}")
+    stray = [k for k in BITSERIAL_KERNELS if label == "bf16" and launches[k]]
+    if stray:
+        raise AssertionError(f"{arch} {label}: the float path launched "
+                             f"{stray}: {launches}")
     with torch.no_grad():
         st = M.init_state(cfg, 1, LM_MAX_LEN, "cuda")
         logits, _ = M.prefill(eng.params, cfg, torch.from_numpy(
             prompts[0][:256]).cuda()[None], st)
     if logits.shape != (1, 1, cfg.vocab) or not bool(
             torch.isfinite(logits).all()):
-        raise AssertionError(f"rwkv6-3b {label}: non-finite or misshapen "
+        raise AssertionError(f"{arch} {label}: non-finite or misshapen "
                              "logits")
     decode_tokens = sum(len(c.tokens) - 1 for c in done)
     row = dict(
-        serving="rwkv6-3b", path=label, layers=cfg.n_layers,
+        serving=arch, path=label, layers=cfg.n_layers,
         d_model=cfg.d_model, vocab=cfg.vocab, requests=len(prompts),
         max_batch=LM_MAX_BATCH, max_new=max_new,
         prompt_tokens=stats["prefill_tokens"], wall_s=wall,
@@ -1093,57 +1269,83 @@ def serve_lm(torch, np, ops, cfg, params, label, max_new, warm_requests):
     got = []
     prof = profile_call(torch, lambda: got.extend(eng.step()))
     if [c.rid for c in got] != [99] or len(got[0].tokens) != 9:
-        raise AssertionError(f"rwkv6-3b {label}: profiled step gave {got}")
+        raise AssertionError(f"{arch} {label}: profiled step gave {got}")
     prof["launches"] = ops.launch_counts()
-    print(json.dumps(dict(profile_admit_256_decode_8=prof, serving="rwkv6-3b",
+    print(json.dumps(dict(profile_admit_256_decode_8=prof, serving=arch,
                           path=label)), flush=True)
-    return launches
+    eng.close()
+    return launches, matmuls.calls
 
 
-def lm_gpu_vs_cpu(torch, np, ops):
-    """rwkv6-3b at full width, 2 layers, float32, one set of weights, on the
+def lm_gpu_vs_cpu(torch, np, ops, arch, kv_quant=False):
+    """``arch`` at full width, 2 layers, float32, one set of weights, on the
     card and on the CPU (plain versions): a 48-token prompt (chunks 32 +
     16) and 4 greedy tokens. Equal tokens; prefill logits within rtol 1e-3
-    and atol 1e-3*max|cpu|."""
+    and atol 1e-3*max|cpu|. With ``kv_quant`` (the int8 KV cache), also
+    ``quantize_kv`` on the first k tensor the CPU run quantized gives equal
+    codes and scales on both devices."""
     import dataclasses
 
     from repro_torch.configs import get_config
+    from repro_torch.models.lm import cache as C
     from repro_torch.models.lm import model as M
     from repro_torch.serving import Request, SamplerConfig, ServeEngine
 
-    cfg = dataclasses.replace(get_config("rwkv6-3b").model, n_layers=2,
-                              dtype="float32")
+    cfg = dataclasses.replace(get_config(arch).model, n_layers=2,
+                              dtype="float32", kv_quant=kv_quant)
     params = M.init(cfg, torch.Generator().manual_seed(1), device="cpu")
     prompt = np.random.default_rng(2).integers(0, cfg.vocab, 48).astype(
         np.int32)
-    logits, toks = {}, {}
+    logits, toks, kv_inputs = {}, {}, []
+    real_quantize_kv = C.quantize_kv
+
+    def spy(x):
+        if not kv_inputs:
+            kv_inputs.append(x.clone())
+        return real_quantize_kv(x)
+
     ops.reset_launch_counts()
     for device in ("cuda", "cpu"):
-        with torch.no_grad():
-            lo, _ = M.prefill(M.to_device(params, device), cfg,
-                              torch.from_numpy(prompt)[None].to(device),
-                              M.init_state(cfg, 1, 64, device))
-        logits[device] = lo.cpu().numpy()
-        eng = ServeEngine(cfg, params, max_batch=1, max_len=64,
-                          sampler=SamplerConfig(temperature=0.0),
-                          device=device)
-        eng.submit(Request(rid=0, prompt=prompt, max_new_tokens=4))
-        toks[device] = eng.run(strict=True)[0].tokens
-        del eng
-    launches = ops.launch_counts()["wkv_chunked"]
+        C.quantize_kv = spy if device == "cpu" else real_quantize_kv
+        try:
+            with torch.no_grad():
+                lo, _ = M.prefill(M.to_device(params, device), cfg,
+                                  torch.from_numpy(prompt)[None].to(device),
+                                  M.init_state(cfg, 1, 64, device))
+            logits[device] = lo.cpu().numpy()
+            eng = ServeEngine(cfg, params, max_batch=1, max_len=64,
+                              sampler=SamplerConfig(temperature=0.0),
+                              device=device)
+            eng.submit(Request(rid=0, prompt=prompt, max_new_tokens=4))
+            toks[device] = eng.run(strict=True)[0].tokens
+            eng.close()
+        finally:
+            C.quantize_kv = real_quantize_kv
+    launches = ops.launch_counts()
     gpu, cpu = logits["cuda"], logits["cpu"]
     err = float(np.abs(gpu - cpu).max())
     scale = float(np.abs(cpu).max())
-    if toks["cuda"] != toks["cpu"] or not launches or not np.allclose(
+    # The float32 path launches the bf16 path's kernels.
+    missing = [k for k in LM_PATH_KERNELS[(arch, "bf16")] if not launches[k]]
+    label = f"{arch}{' kv_quant' if kv_quant else ''}"
+    if toks["cuda"] != toks["cpu"] or missing or not np.allclose(
             gpu, cpu, rtol=1e-3, atol=1e-3 * scale):
         raise AssertionError(
-            f"rwkv6-3b GPU vs CPU: tokens {toks['cuda']} vs {toks['cpu']}, "
-            f"max |dlogit| {err} (max|cpu| {scale}), kernel 5 launches "
-            f"{launches}")
-    print(json.dumps(dict(gpu_vs_cpu="rwkv6-3b", layers=2, prompt=48,
-                          tokens=toks["cuda"], max_abs_diff=err,
-                          max_abs_cpu=scale, wkv_launches=launches)),
-          flush=True)
+            f"{label} GPU vs CPU: tokens {toks['cuda']} vs {toks['cpu']}, "
+            f"max |dlogit| {err} (max|cpu| {scale}), launches {launches}")
+    row = dict(gpu_vs_cpu=label, layers=2, prompt=48, tokens=toks["cuda"],
+               max_abs_diff=err, max_abs_cpu=scale,
+               launches={k: v for k, v in launches.items() if v})
+    if kv_quant:
+        x = kv_inputs[0]
+        want = real_quantize_kv(x)
+        got = [y.cpu() for y in real_quantize_kv(x.cuda())]
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{label}: quantize_kv codes or scales on "
+                                 f"the card != the CPU's, {tuple(x.shape)}")
+        row["quantize_kv_equal"] = dict(shape=list(x.shape), codes=True,
+                                        scales=True)
+    print(json.dumps(row), flush=True)
 
 
 def _packed_leaves(tree, path=""):
@@ -1160,8 +1362,8 @@ def _packed_leaves(tree, path=""):
             yield from _packed_leaves(v, f"{path}/{i}")
 
 
-def lm_pim_gpu_vs_cpu(torch, np, ops):
-    """rwkv6-3b at full width, 1 layer, <8:8> on "cuda", float32, one set of
+def lm_pim_gpu_vs_cpu(torch, np, ops, arch):
+    """``arch`` at full width, 1 layer, <8:8> on "cuda", float32, one set of
     weights, on the card and on the CPU. Two prompts (48 = 32 + 16 and 20 =
     16 + 4) are prefilled chunk by chunk into slots 0 and 1 of a 4-slot
     grid, then two decode steps run at M = 4 on the same tokens.
@@ -1187,14 +1389,15 @@ def lm_pim_gpu_vs_cpu(torch, np, ops):
 
     from repro_torch.configs import get_config
     from repro_torch.core import PIMQuantConfig, pim_layers
+    from repro_torch.core.packed import PackedWeight
     from repro_torch.models.lm import model as M
     from repro_torch.serving.engine import _pow2_chunks
 
-    arch = dataclasses.replace(get_config("rwkv6-3b").model, n_layers=1,
-                               dtype="float32")
-    params = M.init(arch, torch.Generator().manual_seed(3), device="cpu")
+    model = dataclasses.replace(get_config(arch).model, n_layers=1,
+                                dtype="float32")
+    params = M.init(model, torch.Generator().manual_seed(3), device="cpu")
     rng = np.random.default_rng(4)
-    prompts = [rng.integers(0, arch.vocab, n).astype(np.int64)
+    prompts = [rng.integers(0, model.vocab, n).astype(np.int64)
                for n in (48, 20)]
     real, calls, logits, packed = pim_layers.quantized_matmul, [], {}, {}
 
@@ -1204,8 +1407,8 @@ def lm_pim_gpu_vs_cpu(torch, np, ops):
         return y
 
     for device, backend in (("cpu", "int-direct"), ("cuda", "cuda")):
-        cfg = dataclasses.replace(arch, pim=PIMQuantConfig(8, 8,
-                                                           backend=backend))
+        cfg = dataclasses.replace(model, pim=PIMQuantConfig(
+            8, 8, backend=backend))
         ops.reset_launch_counts()
         with torch.no_grad():
             p = packed[device] = M.prepack_params(M.to_device(params, device),
@@ -1253,8 +1456,13 @@ def lm_pim_gpu_vs_cpu(torch, np, ops):
             raise AssertionError(f"prepacked {path} scale/qmin: card != CPU")
     call_err, on_cpu = 0.0, {}
     for a, w, kw, y in calls:
-        w_cpu = on_cpu.setdefault(id(w), w.to("cpu"))
-        want = real(a, w_cpu, **dict(kw, backend="int-direct"))
+        # A PackedWeight, or a tied head's float weight (a new view of the
+        # embedding at every call).
+        key = id(w) if isinstance(w, PackedWeight) else (
+            w.data_ptr(), tuple(w.shape), w.stride())
+        if key not in on_cpu:
+            on_cpu[key] = w.to("cpu")
+        want = real(a, on_cpu[key], **dict(kw, backend="int-direct"))
         err = float((y - want).abs().max() / want.abs().max())
         call_err = max(call_err, err)
         if y.shape != want.shape or err > 1e-5:
@@ -1267,12 +1475,14 @@ def lm_pim_gpu_vs_cpu(torch, np, ops):
     scale = max(float(np.abs(c).max()) for c in logits["cpu"])
     err = max(float(np.abs(g - c).max())
               for g, c in zip(logits["cuda"], logits["cpu"]))
+    missing = [k for k in LM_PATH_KERNELS[(arch, "<8:8> cuda")]
+               if not launches[k]]
     if max(rel_l2) > 0.1 or len(calls) != launches["bitserial_matmul_fused"] \
-            or not launches["wkv_chunked"]:
+            or missing:
         raise AssertionError(
-            f"rwkv6-3b <8:8> GPU vs CPU: logits relative L2 {rel_l2}, "
+            f"{arch} <8:8> GPU vs CPU: logits relative L2 {rel_l2}, "
             f"{len(calls)} products, launches {launches}")
-    print(json.dumps(dict(gpu_vs_cpu="rwkv6-3b <8:8> cuda", layers=1,
+    print(json.dumps(dict(gpu_vs_cpu=f"{arch} <8:8> cuda", layers=1,
                           prompts=[len(x) for x in prompts], decode_steps=2,
                           max_batch=LM_MAX_BATCH, packed_leaves=len(leaves),
                           products=len(calls), product_max_rel_err=call_err,
@@ -1458,8 +1668,8 @@ def main(argv) -> int:
         params = lm.cast_params(
             lm.init(arch, torch.Generator(device="cuda").manual_seed(0),
                     device="cuda"), torch.bfloat16)
-        lm_launches = serve_lm(torch, np, ops, arch, params, "bf16",
-                               max_new=32, warm_requests=8)
+        lm_launches, _ = serve_lm(torch, np, ops, arch, params, "bf16",
+                                  max_new=32)
         del params
         torch.cuda.empty_cache()
     with phase("serve rwkv6-3b <8:8> cuda"), no_plain_pack():
@@ -1467,15 +1677,46 @@ def main(argv) -> int:
                                   pim=PIMQuantConfig(8, 8, backend="cuda"))
         params = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0),
                          device="cuda")
-        serve_lm(torch, np, ops, cfg, params, "<8:8> cuda", max_new=16,
-                 warm_requests=2)
+        _, calls = serve_lm(torch, np, ops, cfg, params, "<8:8> cuda",
+                            max_new=16)
         del params
         torch.cuda.empty_cache()
+    with phase("kernel 2 at rwkv6-3b's served matmuls"):
+        check_served_matmuls(np, kc, "rwkv6-3b", calls)
+    del calls
 
-    # -- 8. rwkv6-3b against the CPU's plain versions --------------------------
+    # -- 7b. serving llama3.2-3b (dense GQA, tied embeddings) ------------------
+    arch = get_config("llama3.2-3b").model
+    with phase("serve llama3.2-3b bf16"), no_plain_pack():
+        params = lm.cast_params(
+            lm.init(arch, torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda"), torch.bfloat16)
+        serve_lm(torch, np, ops, arch, params, "bf16", max_new=32)
+        lm_part_costs(torch, arch, params, "bf16", kc.clock_hz)
+        del params
+        torch.cuda.empty_cache()
+    with phase("serve llama3.2-3b <8:8> cuda"), no_plain_pack():
+        cfg = dataclasses.replace(arch, dtype="float32",
+                                  pim=PIMQuantConfig(8, 8, backend="cuda"))
+        params = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+        _, calls = serve_lm(torch, np, ops, cfg, params, "<8:8> cuda",
+                            max_new=16)
+        lm_part_costs(torch, cfg, params, "<8:8> cuda", kc.clock_hz)
+        del params
+        torch.cuda.empty_cache()
+    with phase("kernel 2 at llama3.2-3b's served matmuls"):
+        check_served_matmuls(np, kc, "llama3.2-3b", calls)
+    del calls
+
+    # -- 8. the LMs against the CPU's plain versions ---------------------------
     with phase("gpu vs cpu rwkv6-3b"):
-        lm_gpu_vs_cpu(torch, np, ops)
-        lm_pim_gpu_vs_cpu(torch, np, ops)
+        lm_gpu_vs_cpu(torch, np, ops, "rwkv6-3b")
+        lm_pim_gpu_vs_cpu(torch, np, ops, "rwkv6-3b")
+    with phase("gpu vs cpu llama3.2-3b"):
+        lm_gpu_vs_cpu(torch, np, ops, "llama3.2-3b")
+        lm_gpu_vs_cpu(torch, np, ops, "llama3.2-3b", kv_quant=True)
+        lm_pim_gpu_vs_cpu(torch, np, ops, "llama3.2-3b")
 
     kernels = [
         summary(kc.rows, "bitplane_pack", launches["bitplane_pack"],

@@ -2,8 +2,9 @@
 architectures ported so far.
 
 ``get_config("<arch-id>")`` returns the published :class:`ArchConfig` of a
-ported architecture. The JAX package registers ten; the other nine raise a
-``KeyError`` that names them as not ported yet (``ROADMAP.md`` Queue 1).
+ported architecture. The JAX package registers ten; the five whose block
+kinds are not ported yet raise a ``KeyError`` that names them as such
+(``ROADMAP.md`` Queue 1, item 2).
 """
 from __future__ import annotations
 
@@ -13,14 +14,17 @@ from .base import SHAPES, ArchConfig, ShapeSpec
 from .paper_cnns import CONFIGS, WI_SWEEP, CNNBenchConfig
 
 _MODULES = {
+    "llama3.2-3b": "llama3_2_3b",
+    "qwen1.5-4b": "qwen1_5_4b",
+    "qwen3-0.6b": "qwen3_0_6b",
+    "granite-3-2b": "granite_3_2b",
     "rwkv6-3b": "rwkv6_3b",
 }
 
 # Registered by the JAX package, still to port with their block kinds.
 NOT_PORTED = (
     "grok-1-314b", "phi3.5-moe-42b-a6.6b", "recurrentgemma-9b",
-    "musicgen-large", "llama3.2-3b", "qwen1.5-4b", "qwen3-0.6b",
-    "granite-3-2b", "llama-3.2-vision-90b",
+    "musicgen-large", "llama-3.2-vision-90b",
 )
 
 ARCH_IDS = tuple(_MODULES)

@@ -32,10 +32,12 @@ from __future__ import annotations
 import torch
 
 from . import bitslice
-from .packed import PackedWeight, prepack
+from .packed import PackedWeight
 from .quantize import QuantParams, affine_correction, calibrate_minmax, quantize
 
 BACKENDS = ("popcount", "mxu-plane", "int-direct", "cuda")
+# The backends that contract the codes and read no planes.
+CODE_BACKENDS = ("mxu-plane", "int-direct")
 
 
 def _kernels():
@@ -102,10 +104,14 @@ def int_matmul_direct(qa: torch.Tensor, qw: torch.Tensor, a_bits: int = 0,
     return _wrap_int32(p.to(torch.int64))
 
 
-def _pack_codes(qw: torch.Tensor, wq: QuantParams) -> PackedWeight:
-    """Weight codes (K, N) as a PackedWeight (planes of ``qw.T``)."""
+def _pack_codes(qw: torch.Tensor, wq: QuantParams,
+                planes: bool = True) -> PackedWeight:
+    """Weight codes (K, N) as a PackedWeight (planes of ``qw.T``). With
+    ``planes=False`` the planes are left out (None): the backends of
+    ``CODE_BACKENDS`` contract the codes and never read them."""
     return PackedWeight(
-        codes=qw, planes=_kernels().pack_planes(qw.T.contiguous(), wq.bits),
+        codes=qw, planes=_kernels().pack_planes(qw.T.contiguous(), wq.bits)
+        if planes else None,
         col_sums=qw.sum(0).to(torch.int32), wq=wq)
 
 
@@ -157,10 +163,11 @@ def quantized_matmul(a: torch.Tensor, w, a_bits: int = 8, w_bits: int = 8,
     qa = quantize(a2, aq)
     if isinstance(w, PackedWeight):
         packed = w
-    elif qw is not None:
-        packed = _pack_codes(qw, wq)
     else:
-        packed = prepack(w, w_bits)
+        if qw is None:
+            wq = calibrate_minmax(w, w_bits)
+            qw = quantize(w, wq)
+        packed = _pack_codes(qw, wq, planes=backend not in CODE_BACKENDS)
     p = int_matmul_prepacked(qa, packed, a_bits, backend)
     sa = qa.sum(-1, keepdim=True)
     y = affine_correction(p, sa, packed.col_sums, k, aq, packed.wq)

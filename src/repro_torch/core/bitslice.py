@@ -75,7 +75,10 @@ def slice_and_pack(q: torch.Tensor, bits: int) -> torch.Tensor:
     kp = pad_to_lanes(k)
     if kp != k:
         q = torch.nn.functional.pad(q, (0, kp - k))
-    return pack_bits(bitplanes(q, bits))
+    # One plane at a time: pack_bits widens to int64, and all planes at
+    # once would hold 16 bytes a code and plane (25 GB for an 8-bit
+    # 128,256 x 3,072 head).
+    return torch.stack([pack_bits((q >> b) & 1) for b in range(bits)])
 
 
 def popcount(x: torch.Tensor) -> torch.Tensor:

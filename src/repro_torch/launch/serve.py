@@ -1,12 +1,14 @@
 """Serving launcher for the port: LM generation and CNN inference.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \
-      --arch rwkv6-3b --reduced --requests 6 --max-new 16 \
-      [--precision '<8:8>' --backend cuda]
+      --arch llama3.2-3b --requests 6 --max-new 16 \
+      [--precision '<8:8>' --backend cuda] [--reduced --device cpu]
 
-serves an LM architecture (random weights from a seed, the arch's dtype;
-with ``--precision '<W:I>'`` every projection runs the paper's bit-serial
-pipeline in float32) through the continuous-batching ``ServeEngine``.
+serves an LM architecture (the dense ``llama3.2-3b``, ``qwen3-0.6b``,
+``qwen1.5-4b``, ``granite-3-2b``, or ``rwkv6-3b``; random weights from a
+seed, the arch's dtype; with ``--precision '<W:I>'`` every projection runs
+the paper's bit-serial pipeline in float32) through the
+continuous-batching ``ServeEngine``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --workload cnn \
       --cnn-model resnet50 --image 224 --requests 16 --precision '<8:8>'

@@ -1,5 +1,9 @@
-"""LM substrate of the port: configs, blocks and whole-model entry points
-(the ``rwkv`` block kind so far)."""
+"""LM substrate of the port: configs, blocks and whole-model entry points.
+
+Ported block kinds: ``attn`` (the dense GQA decoder: RoPE, qk-norm, QKV
+bias, the gated MLP and the KV cache, float or int8) and ``rwkv``
+(RWKV-6). ``local_attn``, ``cross_attn``, ``rglru`` and MoE FFNs raise
+``NotImplementedError`` (``ROADMAP.md`` Queue 1, item 2)."""
 from .config import ModelConfig, MoEConfig
 from .model import (
     cast_params,

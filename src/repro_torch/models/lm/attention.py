@@ -1,0 +1,163 @@
+"""Grouped-query attention with the variants the dense archs need.
+
+Covers MHA/GQA (any kv:q ratio), QKV bias (qwen1.5), per-head qk_norm
+(qwen3), the sliding-window mask, attention-logit softcap (grok), and the
+shared prefill/decode code path driven by explicit position tensors. The
+paths are the self-attention with no cache (``forward``) and against the
+full KV cache (prefill and decode). Cross-attention and the ring-buffer
+cache of local attention come with their block kinds (``ROADMAP.md``
+Queue 1, item 2).
+
+All projections route through :func:`repro_torch.core.pim_layers.
+pim_linear`, so an arch config with ``pim`` set executes every QKVO matmul
+through the paper's bit-serial pipeline (Eq. 1): kernel 2 on the ``cuda``
+backend.
+
+Scores and PV are plain ``torch.matmul``, as the JAX package computes them
+(``jnp.einsum`` outside any Pallas kernel). They run in float32 on float32
+copies of the operands: the JAX package contracts bf16 operands with float32
+accumulation and a float32 result, which a bf16 ``torch.matmul`` would
+round to bf16. Each operand is first rounded to the dtype the JAX package
+contracts it in, so the products are the same. Softmax runs in float32 with
+max-subtraction; masked positions get ``NEG`` rather than -inf, so a fully
+masked row gives a uniform softmax, not NaN.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.pim_layers import pim_linear
+
+from . import cache as C
+from .config import ModelConfig
+from .norms import qk_head_norm
+from .rope import apply_rope
+from .rwkv6 import randn
+
+NEG = -2.0**30
+
+
+def init_attention(cfg: ModelConfig, generator, device=None):
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    scale = d**-0.5
+    p = {
+        "wq": randn(generator, (d, hq * hd), scale, device),
+        "wk": randn(generator, (d, hkv * hd), scale, device),
+        "wv": randn(generator, (d, hkv * hd), scale, device),
+        "wo": randn(generator, (hq * hd, d), (hq * hd)**-0.5, device),
+    }
+
+    def const(n, value):
+        return torch.full((n,), value, dtype=torch.float32, device=device)
+
+    if cfg.qkv_bias:
+        p["bq"] = const(hq * hd, 0.0)
+        p["bk"] = const(hkv * hd, 0.0)
+        p["bv"] = const(hkv * hd, 0.0)
+    if cfg.qk_norm:
+        p["q_norm"] = const(hd, 1.0)
+        p["k_norm"] = const(hd, 1.0)
+    return p
+
+
+def attention_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor,
+                   window: int = 0, causal: bool = True) -> torch.Tensor:
+    """(B, Sq), (B, Skv) int32 -> (B, 1, Sq, Skv) bool (True = attend)."""
+    q = q_pos[:, :, None]
+    k = kv_pos[:, None, :]
+    m = torch.ones(torch.broadcast_shapes(q.shape, k.shape), dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        m &= k <= q
+    if window:
+        m &= k > q - window
+    return m[:, None, :, :]
+
+
+def _as(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x`` rounded to ``dtype``, in float32."""
+    return x.to(dtype).to(torch.float32)
+
+
+def gqa_scores_softmax_v(q, k, v, mask, softcap: float = 0.0,
+                         k_scale=None, v_scale=None):
+    """Core GQA attention. q (B,Sq,Hq,D), k/v (B,Skv,Hkv,D), mask
+    (B,1,Sq,Skv).
+
+    Query head ``h`` reads KV head ``h // G`` (G = Hq / Hkv; the
+    repeat-interleave order). int8 KV caches pass per-(token, head)
+    ``k_scale``/``v_scale`` ((B, Skv, Hkv) float32): the scales fold into
+    the scores and the probabilities, so a dequantized cache is never
+    built."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    g = hq // hkv
+    qg = q.to(torch.float32) * d**-0.5
+    if k.is_floating_point():   # the JAX package contracts q in k's dtype
+        qg = _as(qg, k.dtype)
+    # (B, Hkv, G*Sq, D) @ (B, Hkv, D, Skv): one batched product per KV head.
+    qg = qg.reshape(b, sq, hkv, g, d).permute(0, 2, 3, 1, 4).reshape(
+        b, hkv, g * sq, d)
+    s = torch.matmul(qg, k.to(torch.float32).permute(0, 2, 3, 1))
+    s = s.reshape(b, hkv, g, sq, skv)
+    if k_scale is not None:   # (B, Skv, Hkv) -> (B, Hkv, 1, 1, Skv)
+        s = s * k_scale.permute(0, 2, 1)[:, :, None, None, :]
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    s = torch.where(mask[:, :, None], s, NEG)
+    p = torch.softmax(s, dim=-1)
+    if v_scale is not None:
+        p = _as(p * v_scale.permute(0, 2, 1)[:, :, None, None, :], q.dtype)
+    elif v.is_floating_point():
+        p = _as(p, v.dtype)
+    o = torch.matmul(p.reshape(b, hkv, g * sq, skv),
+                     v.to(torch.float32).permute(0, 2, 1, 3))
+    o = o.reshape(b, hkv, g, sq, d).permute(0, 3, 1, 2, 4)
+    return o.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def attention(p, cfg: ModelConfig, x: torch.Tensor, q_pos: torch.Tensor,
+              kv_src=None, cache: dict | None = None, cache_index=None,
+              ring: bool = False):
+    """One attention block. Returns (out (B, Sq, d), the cache | None).
+
+    ``x`` (B, Sq, d); ``q_pos`` (B, Sq) int32. With ``cache``, the new keys
+    and values are written into it in place at ``cache_index`` (B,) and
+    the queries attend over its first ``cache_index + Sq`` rows."""
+    if kv_src is not None or ring:
+        raise NotImplementedError(
+            "cross-attention and the ring-buffer cache are not ported yet "
+            "(ROADMAP.md Queue 1, item 2: rglru and local attention, MoE, "
+            "stubs)")
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    b, sq, _ = x.shape
+    pim = cfg.pim
+
+    q = pim_linear(x, p["wq"], p.get("bq"), cfg=pim).reshape(b, sq, hq, hd)
+    k = pim_linear(x, p["wk"], p.get("bk"), cfg=pim).reshape(b, sq, hkv, hd)
+    v = pim_linear(x, p["wv"], p.get("bv"), cfg=pim).reshape(b, sq, hkv, hd)
+    if cfg.qk_norm:
+        q = qk_head_norm(p["q_norm"], q, cfg.norm_eps)
+        k = qk_head_norm(p["k_norm"], k, cfg.norm_eps)
+    q = apply_rope(q, q_pos, cfg.rope_theta)
+    k = apply_rope(k, q_pos, cfg.rope_theta)
+
+    scales = {}
+    if cache is not None:
+        cache = C.update_kv_cache(cache, k, v, cache_index)
+        k, v = cache["k"], cache["v"]
+        kv_pos = torch.arange(k.shape[1], dtype=torch.int32,
+                              device=x.device)[None].expand(b, -1)
+        mask = attention_mask(q_pos, kv_pos)
+        valid = torch.as_tensor(cache_index, device=x.device).reshape(
+            -1, 1) + sq                                         # (B, 1)
+        mask &= (kv_pos < valid)[:, None, None, :]
+        if "k_scale" in cache:
+            scales = {"k_scale": cache["k_scale"],
+                      "v_scale": cache["v_scale"]}
+    else:
+        mask = attention_mask(q_pos, q_pos)
+    o = gqa_scores_softmax_v(q, k, v, mask, softcap=cfg.attn_softcap,
+                             **scales)
+    out = pim_linear(o.reshape(b, sq, hq * hd), p["wo"], cfg=pim)
+    return out, cache

@@ -1,16 +1,81 @@
-"""Decode-time state: recurrent states as plain dicts of tensors.
+"""Decode-time state: KV caches and recurrent states, as plain dicts of
+tensors.
 
-Every layer kind owns a state factory; the serving engine keeps one
-(max_batch, ...) state on the device across steps and never copies it to
-the host. RWKV keeps O(1) decode state: the (H, D, D) WKV matrix and the
-two token-shift vectors. The other kinds (KV caches, ring buffers, RG-LRU
-states) come with their block kinds (``ROADMAP.md`` Queue 1).
+Every layer kind owns a state factory and, where it needs one, an update;
+the serving engine keeps one (max_batch, ...) state on the device across
+steps and never copies it to the host. ``attn`` blocks keep a KV cache of
+(B, max_len, n_kv_heads, head_dim) in the model's dtype, or with
+``cfg.kv_quant`` int8 codes plus float32 per-(token, head) scales; an
+update writes only the new rows, in place, at each sequence's own offset.
+RWKV keeps O(1) decode state: the (H, D, D) WKV matrix and the two
+token-shift vectors. Ring buffers (``local_attn``), the cross-attention
+cache and RG-LRU states come with their block kinds (``ROADMAP.md`` Queue
+1, item 2).
 """
 from __future__ import annotations
 
 import torch
 
 from .config import ModelConfig
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  dtype=torch.bfloat16, device=None):
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.kv_quant:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:3], dtype=torch.float32,
+                                       device=device),
+                "v_scale": torch.zeros(shape[:3], dtype=torch.float32,
+                                       device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def quantize_kv(x: torch.Tensor):
+    """Symmetric per-(token, head) int8 codes + float32 scales.
+
+    x (B, S, H, D) -> (codes int8, scale (B, S, H)). Rounds half to even,
+    as ``jnp.round`` does, and divides by a device tensor: CUDA divides by
+    a Python number as a multiply by its reciprocal, which moves codes."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1)
+    scale = amax / torch.full((), 127.0, device=x.device) + 1e-30
+    q = torch.round(xf / scale[..., None])
+    return q.clamp(-127, 127).to(torch.int8), scale
+
+
+def update_kv_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
+                    index) -> dict:
+    """Write (B, S_new, H, D) at per-sequence offsets along the time axis,
+    in place, and return ``cache``.
+
+    ``index`` is (B,) (continuous batching: every slot has its own length)
+    or a scalar. Only the S_new new rows of each sequence are written (an
+    advanced-index assignment), so slots at different positions coexist
+    in one decode grid and no step copies the whole cache. A write as long
+    as the cache (prefill into a same-length cache, index 0) replaces it
+    outright, as the JAX package does."""
+    b, s_new = k_new.shape[:2]
+    if "k_scale" in cache:   # int8 KV: quantize the update, store scales
+        kq, ks = quantize_kv(k_new)
+        vq, vs = quantize_kv(v_new)
+        new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        new = {"k": k_new, "v": v_new}
+    if s_new == cache["k"].shape[1]:
+        for name, val in new.items():
+            cache[name].copy_(val)
+        return cache
+    dev = cache["k"].device
+    idx = torch.as_tensor(index, dtype=torch.int64, device=dev)
+    rows = idx.reshape(-1, 1).expand(b, 1) + torch.arange(
+        s_new, device=dev)[None, :]
+    bidx = torch.arange(b, device=dev)[:, None]
+    for name, val in new.items():
+        cache[name][bidx, rows] = val.to(cache[name].dtype)
+    return cache
 
 
 def init_rwkv_state(cfg: ModelConfig, batch: int, device=None):
@@ -29,36 +94,39 @@ def init_rwkv_state(cfg: ModelConfig, batch: int, device=None):
 
 
 def init_layer_state(kind: str, cfg: ModelConfig, batch: int, max_len: int,
-                     device=None):
+                     device=None, dtype=torch.bfloat16):
+    if kind == "attn":
+        return init_kv_cache(cfg, batch, max_len, dtype=dtype, device=device)
     if kind == "rwkv":
         return init_rwkv_state(cfg, batch, device)
-    if kind in ("attn", "local_attn", "cross_attn", "rglru"):
+    if kind in ("local_attn", "cross_attn", "rglru"):
         raise NotImplementedError(
             f"decode state of block kind {kind!r} is not ported yet "
-            "(ROADMAP.md Queue 1, the LM zoo)")
+            "(ROADMAP.md Queue 1, item 2: rglru and local attention, "
+            "MoE, stubs)")
     raise ValueError(kind)
 
 
 def init_model_state(cfg: ModelConfig, batch: int, max_len: int,
-                     device=None):
+                     device=None, dtype=torch.bfloat16):
     """Full decode state in the layout of the stacked parameters.
 
     ``scan``: one tree per unit position whose leaves carry a leading
     (n_reps,) axis, as in the JAX package; ``rest``: per-layer states for
     the remainder layers. ``length`` is (B,): every continuous-batching
-    slot decodes at its own position."""
+    slot decodes at its own position. KV caches take ``dtype``."""
     from .model import layer_plan  # local import to avoid a cycle
 
     unit, reps, rest = layer_plan(cfg)
 
     def stacked(kind):
-        proto = init_layer_state(kind, cfg, batch, max_len, device)
+        proto = init_layer_state(kind, cfg, batch, max_len, device, dtype)
         return {k: torch.zeros((reps,) + tuple(v.shape), dtype=v.dtype,
                                device=device) for k, v in proto.items()}
 
     return {
         "scan": [stacked(kind) for kind in unit],
-        "rest": [init_layer_state(kind, cfg, batch, max_len, device)
+        "rest": [init_layer_state(kind, cfg, batch, max_len, device, dtype)
                  for kind in rest],
         "length": torch.zeros((batch,), dtype=torch.int32, device=device),
     }

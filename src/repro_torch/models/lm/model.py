@@ -14,9 +14,10 @@ Entry points:
 
 State updates are in place: ``prefill`` and ``decode_step`` write each
 layer's new carries into the stacked state tensors they were given (and
-return the same dict), so a decode step allocates no second copy of the
-(max_batch, ...) state. Only the ``rwkv`` block kind is ported; the others
-raise ``NotImplementedError``.
+return the same dict), and an ``attn`` layer writes only its new KV rows,
+so a decode step allocates no second copy of the (max_batch, ...) state.
+The ``attn`` (dense decoder) and ``rwkv`` block kinds are ported; the
+others, and MoE FFNs, raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,7 +26,9 @@ import torch
 from repro_torch.core.packed import prepack
 from repro_torch.core.pim_layers import pim_linear
 
+from . import attention as A
 from . import cache as C
+from . import mlp as MLP
 from . import rwkv6 as RW
 from .config import ModelConfig
 from .norms import apply_norm, init_norm
@@ -62,29 +65,53 @@ def layer_plan(cfg: ModelConfig) -> tuple[tuple, int, tuple]:
 # Per-block init / apply
 # ---------------------------------------------------------------------------
 
-def _not_ported(kind: str):
+def _not_ported(what: str):
     return NotImplementedError(
-        f"block kind {kind!r} is not ported yet (ROADMAP.md Queue 1, the LM "
-        "zoo); the port runs 'rwkv'")
+        f"{what} is not ported yet (ROADMAP.md Queue 1, item 2: rglru and "
+        "local attention, MoE, stubs); the port runs 'attn' and 'rwkv'")
+
+
+def _check_ported(kind: str, cfg: ModelConfig):
+    if kind not in ("attn", "rwkv"):
+        raise _not_ported(f"block kind {kind!r}")
+    if kind == "attn" and cfg.moe:
+        raise _not_ported("the MoE FFN")
 
 
 def init_block(kind: str, cfg: ModelConfig, generator, device=None):
-    if kind != "rwkv":
-        raise _not_ported(kind)
+    _check_ported(kind, cfg)
     d = cfg.d_model
-    return {
-        "norm1": init_norm(cfg.norm, d, device),
-        "time_mix": RW.init_rwkv_block(cfg, generator, device),
-        "norm2": init_norm(cfg.norm, d, device),
-        "channel_mix": RW.init_rwkv_channel_mix(cfg, generator, device),
-    }
+    p = {"norm1": init_norm(cfg.norm, d, device)}
+    if kind == "attn":
+        p["attn"] = A.init_attention(cfg, generator, device)
+        if cfg.post_attn_norm:
+            p["norm_post"] = init_norm(cfg.norm, d, device)
+        p["norm2"] = init_norm(cfg.norm, d, device)
+        p["ffn"] = MLP.init_mlp(cfg, generator, device)
+        return p
+    p["time_mix"] = RW.init_rwkv_block(cfg, generator, device)
+    p["norm2"] = init_norm(cfg.norm, d, device)
+    p["channel_mix"] = RW.init_rwkv_channel_mix(cfg, generator, device)
+    return p
 
 
-def apply_block(kind: str, p, cfg: ModelConfig, x, state=None):
-    """Pre-norm residual block. Returns (x, new_state)."""
-    if kind != "rwkv":
-        raise _not_ported(kind)
+def apply_block(kind: str, p, cfg: ModelConfig, x, q_pos=None, state=None,
+                cache_index=None):
+    """Pre-norm residual block. Returns (x, new_state).
+
+    ``q_pos`` (B, S) int32 and ``cache_index`` (B,) are the positions an
+    ``attn`` block needs (the ``rwkv`` block ignores them); its new state
+    is ``state`` itself, written in place."""
+    _check_ported(kind, cfg)
     h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
+    if kind == "attn":
+        y, new_inner = A.attention(p["attn"], cfg, h, q_pos, cache=state,
+                                   cache_index=cache_index)
+        if cfg.post_attn_norm:
+            y = apply_norm(cfg.norm, p["norm_post"], y, cfg.norm_eps)
+        x = x + y
+        h2 = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
+        return x + MLP.mlp(p["ffn"], cfg, h2), new_inner
     y, new_inner = RW.rwkv_time_mix(p["time_mix"], cfg, h, state)
     x = x + y
     h2 = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
@@ -152,10 +179,16 @@ def to_device(params, device):
     return _map(lambda x: x.to(device), params)
 
 
-# Projection leaves that route through pim_linear — the prepack targets:
-# the rwkv block's projections and the untied head. (The embedding gather
-# is not a GEMM and stays float.) Other block kinds add theirs when ported.
-_PIM_PROJ_KEYS = frozenset({"w_r", "w_k", "w_v", "w_g", "w_o", "head"})
+# Projection leaves that route through pim_linear — the prepack targets.
+# (Tied embeddings stay float: the embedding gather is not a GEMM, and the
+# tied head quantizes ``embed.T`` per call, as the JAX package does.) The
+# rglru input projection ``w_x`` comes with its block kind.
+_PIM_PROJ_KEYS = frozenset({
+    "wq", "wk", "wv", "wo",                      # attention
+    "w_in", "w_out", "w_gate",                   # mlp
+    "w_r", "w_k", "w_v", "w_g", "w_o",           # rwkv6
+    "head",                                      # untied lm head
+})
 
 
 def prepack_params(params, cfg):
@@ -203,24 +236,29 @@ def _rep(tree, r: int):
 
 
 def _write(dst: dict, src: dict):
-    """Copy a layer's new state into its slice of the stacked state."""
-    for k, v in src.items():
-        dst[k].copy_(v)
+    """Copy a layer's new state into its slice of the stacked state (a KV
+    cache comes back as ``dst`` itself, already written in place)."""
+    if src is not dst:
+        for k, v in src.items():
+            dst[k].copy_(v)
 
 
-def _run_blocks(params, cfg: ModelConfig, x, states=None):
+def _run_blocks(params, cfg: ModelConfig, x, q_pos, states=None,
+                cache_index=None):
     """Apply the full block schedule; ``states`` (prefill/decode) is
     updated in place."""
     unit, reps, rest = layer_plan(cfg)
     for r in range(reps):
         for j, kind in enumerate(unit):
             s = _rep(states["scan"][j], r) if states is not None else None
-            x, ns = apply_block(kind, _rep(params["scan"][j], r), cfg, x, s)
+            x, ns = apply_block(kind, _rep(params["scan"][j], r), cfg, x,
+                                q_pos, s, cache_index)
             if states is not None:
                 _write(s, ns)
     for i, kind in enumerate(rest):
         s = states["rest"][i] if states is not None else None
-        x, ns = apply_block(kind, params["rest"][i], cfg, x, s)
+        x, ns = apply_block(kind, params["rest"][i], cfg, x, q_pos, s,
+                            cache_index)
         if states is not None:
             _write(s, ns)
     return x
@@ -244,16 +282,30 @@ def forward(params, cfg: ModelConfig, tokens):
     """Full-sequence forward. Returns (logits (B, S, V) float32, aux loss);
     the aux loss is MoE's and 0 here."""
     x = embed_inputs(params, cfg, tokens)
-    x = _run_blocks(params, cfg, x)
+    b, s = x.shape[:2]
+    q_pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(
+        b, s)
+    x = _run_blocks(params, cfg, x, q_pos)
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     return lm_head(params, cfg, x), torch.zeros((), device=x.device)
 
 
+def _positions(state, b: int, s: int):
+    """(cache_index (B,), q_pos (B, S)) of a step that starts at each
+    sequence's ``state["length"]``."""
+    idx = state["length"].expand(b).clone()
+    q_pos = idx[:, None] + torch.arange(s, dtype=torch.int32,
+                                        device=idx.device)[None]
+    return idx, q_pos
+
+
 def decode_step(params, cfg: ModelConfig, tokens, state):
     """One decode step. tokens (B, 1) -> (logits (B, 1, V), state), the
-    state updated in place."""
+    state updated in place. ``state["length"]`` is (B,): every slot of a
+    continuous-batching grid decodes at its own position."""
     x = embed_inputs(params, cfg, tokens)
-    x = _run_blocks(params, cfg, x, state)
+    idx, q_pos = _positions(state, x.shape[0], 1)
+    x = _run_blocks(params, cfg, x, q_pos, state, idx)
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     logits = lm_head(params, cfg, x)
     state["length"] += 1
@@ -264,15 +316,20 @@ def prefill(params, cfg: ModelConfig, tokens, state):
     """Run a whole prompt through the model, filling the decode state in
     place. Returns the last token's logits (B, 1, V)."""
     x = embed_inputs(params, cfg, tokens)
-    x = _run_blocks(params, cfg, x, state)
+    idx, q_pos = _positions(state, *x.shape[:2])
+    x = _run_blocks(params, cfg, x, q_pos, state, idx)
     x = apply_norm(cfg.norm, params["final_norm"], x[:, -1:], cfg.norm_eps)
     logits = lm_head(params, cfg, x)
     state["length"] += tokens.shape[1]
     return logits, state
 
 
-def init_state(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
-    return C.init_model_state(cfg, batch, max_len, device)
+def init_state(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
+               dtype=None):
+    """Decode state on ``device``; KV caches default to the model's compute
+    dtype."""
+    dtype = torch_dtype(cfg.dtype) if dtype is None else dtype
+    return C.init_model_state(cfg, batch, max_len, device, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -282,11 +339,11 @@ def init_state(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
 # leaves ((n_reps, B, ...)) and position 0 for remainder-layer leaves and
 # ``length``.
 
-def _slot_take(state, slot: int):
-    """A copy of slot ``slot`` of a (max_batch, ...) grid, as a batch-1
-    state."""
+def _slot_view(state, slot: int):
+    """Slot ``slot`` of a (max_batch, ...) grid as a batch-1 state of
+    views: what is written to it lands in the grid."""
     def take(ax):
-        return lambda t: t.narrow(ax, slot, 1).clone()
+        return lambda t: t.narrow(ax, slot, 1)
     return {
         "scan": [_map(take(1), t) for t in state["scan"]],
         "rest": [_map(take(0), t) for t in state["rest"]],
@@ -294,42 +351,30 @@ def _slot_take(state, slot: int):
     }
 
 
-def _slot_put(state, s1, slot: int):
-    """Write a batch-1 state back into slot ``slot`` of the grid, in
-    place."""
-    def put(ax, big, small):
-        for k in big:
-            big[k].narrow(ax, slot, 1).copy_(small[k])
-    for big, small in zip(state["scan"], s1["scan"]):
-        put(1, big, small)
-    for big, small in zip(state["rest"], s1["rest"]):
-        put(0, big, small)
-    state["length"].narrow(0, slot, 1).copy_(s1["length"])
-    return state
-
-
 def prefill_into_slot(params, cfg: ModelConfig, tokens, state, slot: int,
                       start_pos: int):
     """Prefill ``tokens`` (1, S) into slot ``slot`` of a decode-state grid.
 
-    The slot's state is copied out, run through :func:`prefill` and written
-    back, so the grid changes only in that slot. Returns (last-token logits
-    (1, 1, V), the grid). Chunked admission calls this once per
-    power-of-two chunk of a prompt, threading ``start_pos`` forward.
+    :func:`prefill` runs on views of the slot, so the grid changes only in
+    that slot, in place, and no copy of the slot's state is made. Returns
+    (last-token logits (1, 1, V), the grid). Chunked admission calls this
+    once per power-of-two chunk of a prompt, threading ``start_pos``
+    forward; a chunk at ``start_pos`` > 0 attends over the rows the earlier
+    chunks cached.
 
     Slot reuse must not leak the previous occupant's state into the new
-    request: recurrent carries (RWKV wkv and token shifts) are
-    position-less, so every leaf of the slot is zeroed on a request's first
-    chunk (``start_pos == 0``); later chunks continue the carried state.
+    request: KV rows are position-masked, but recurrent carries (RWKV wkv
+    and token shifts) are position-less, so every leaf of the slot is
+    zeroed on a request's first chunk (``start_pos == 0``); later chunks
+    continue the carried state.
     """
-    s1 = _slot_take(state, slot)
+    s1 = _slot_view(state, slot)
     if start_pos == 0:
-        s1 = {"scan": [_map(torch.zero_, t) for t in s1["scan"]],
-              "rest": [_map(torch.zero_, t) for t in s1["rest"]],
-              "length": s1["length"]}
+        for t in s1["scan"] + s1["rest"]:
+            _map(torch.Tensor.zero_, t)
     s1["length"].fill_(start_pos)
-    logits, s1 = prefill(params, cfg, tokens, s1)
-    return logits, _slot_put(state, s1, slot)
+    logits, _ = prefill(params, cfg, tokens, s1)
+    return logits, state
 
 
 __all__ = ["apply_block", "cast_params", "decode_step",

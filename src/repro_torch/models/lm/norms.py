@@ -1,4 +1,4 @@
-"""Normalization layers (RMSNorm / LayerNorm), pure functions.
+"""Normalization layers (RMSNorm / LayerNorm / QK-norm), pure functions.
 
 Params are plain dicts; compute in float32 then cast back, as the JAX
 package does. A bf16 scale promotes to float32 against the float32
@@ -40,3 +40,14 @@ def init_norm(kind: str, d: int, device=None):
 
 def apply_norm(kind: str, p, x, eps: float = 1e-6):
     return layernorm(p, x, eps) if kind == "layernorm" else rmsnorm(p, x, eps)
+
+
+def qk_head_norm(scale: torch.Tensor, x: torch.Tensor,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """Per-head RMS norm over head_dim (qwen3-style qk_norm), in float32.
+
+    ``x``: (..., heads, head_dim); ``scale``: (head_dim,).
+    """
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)

@@ -11,12 +11,16 @@ live flag), and runs two paths:
     right-padding to a bucket) keeps recurrent states exact: the carry
     threads across chunks and no pad token enters the recurrence. On an
     ``rwkv`` model every chunk of 16 or more tokens runs the chunked WKV
-    kernel. The first token is sampled on the device and read once.
+    kernel; on a dense model a chunk at an offset above 0 attends over the
+    KV rows the earlier chunks wrote. The first token is sampled on the
+    device and read once.
   * **``decode_n``.** Up to ``drain_steps`` fused decode + sample steps per
     dispatch when no admissions are pending. The control block stays on
     the device; only the (n, B) sampled tokens and done flags cross to the
     host, in one copy per dispatch, never the (B, vocab) logits. Dead slots
-    decode into their frozen position; the grid never reshapes.
+    decode into their frozen position (a KV write lands on one row, which
+    the next occupant overwrites before it can attend to it); the grid
+    never reshapes.
 
 Continuous batching: when a sequence finishes (EOS or budget), its slot is
 released and the next queued request prefills into it. While the queue is
@@ -24,10 +28,12 @@ non-empty the engine decodes one step at a time so a freed slot is
 refilled at the next token boundary; once it drains, multi-step dispatches.
 
 Memory: the decode state and the control block are updated in place (a
-decode step writes each layer's new carries into the grid), so serving
-holds one copy of the state. When ``cfg.pim`` is enabled the constructor
-prepacks every projection weight once (the paper's program-subarrays-once
-step) and prefill/decode never re-quantize a weight.
+decode step writes each layer's new carries, or its new KV rows, into the
+grid), so serving holds one copy of the state. When ``cfg.pim`` is
+enabled the constructor prepacks every projection weight once (the
+paper's program-subarrays-once step) and prefill/decode never re-quantize
+a weight (a tied head, which stays float, quantizes at every call, as in
+the JAX package).
 
 Later slices (``ROADMAP.md`` Queue 1): mesh serving, pipelined decode,
 the fault model and watchdog, the autotuner, snapshot/restore, redeploy
@@ -122,6 +128,11 @@ class ServeEngine:
         self.queue: collections.deque = collections.deque()
         self.done: list = []
         self._cancelled: set = set()   # rids to release at the next boundary
+        # The JAX engine's health counters: dispatches are counted; the
+        # watchdog that moves the others comes in a later slice.
+        self.health = {"dispatches": 0, "rollbacks": 0, "stragglers": 0,
+                       "snapshots": 0, "degraded": False}
+        self._closed = False
 
     # -- device paths --------------------------------------------------------
 
@@ -178,6 +189,8 @@ class ServeEngine:
                 f"exceeds the decode grid (max_len={self.max_len})")
 
     def submit(self, req: Request):
+        if self._closed:
+            raise RuntimeError("ServeEngine.submit after close()")
         self.validate(req.prompt, req.max_new_tokens)
         self.queue.append(req)
 
@@ -253,6 +266,7 @@ class ServeEngine:
                              int(max(self.slot_remaining[i] for i in live))))
             n = 1 << (cap.bit_length() - 1)
         toks, dones = self._decode_n(n)
+        self.health["dispatches"] += 1
         for k in range(n):
             for i in list(live):
                 req = self.slot_req[i]
@@ -267,6 +281,23 @@ class ServeEngine:
     def _drain_done(self):
         out, self.done = self.done, []
         return out
+
+    def stats(self) -> dict:
+        """Telemetry snapshot in the JAX engine's form: ``{"health": ...}``
+        (``dispatches``, ``rollbacks``, ``stragglers``, ``snapshots``,
+        ``degraded``). The JAX engine adds ring-buffer channels for MoE
+        routing only, and MoE is not ported."""
+        return {"health": dict(self.health)}
+
+    def close(self):
+        """Engine teardown: drop the device tensors the engine holds (the
+        prepacked weights, the decode grid, the control block and the
+        generator), so their memory returns to the allocator, and refuse
+        further work. ``stats()`` still answers."""
+        self.params = self.state = self.ctrl = self.generator = None
+        self.queue.clear()
+        self.slot_req = [None] * self.max_batch
+        self._closed = True
 
     def run(self, max_steps: int = 10_000, strict: bool = False) -> list:
         """Drive until queue + slots drain; returns all completions.

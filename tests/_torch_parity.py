@@ -80,13 +80,79 @@ def check_tree_carried(jparams, tree, own):
 
     for path, leaf in jax.tree_util.tree_leaves_with_path(jparams):
         got = tree
-        for key in path:
-            got = got[key.key]
+        for key in path:   # dict keys, and list indices (the LM trees)
+            got = got[key.key if hasattr(key, "key") else key.idx]
         assert got.dtype == torch.float32 and got.device.type == "cpu"
         np.testing.assert_array_equal(got.numpy(), np.asarray(leaf))
 
     def shapes(t):
-        return {k: shapes(v) for k, v in t.items()} if isinstance(t, dict) \
-            else tuple(t.shape)
+        if isinstance(t, dict):
+            return {k: shapes(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [shapes(v) for v in t]
+        return tuple(t.shape)
 
     assert shapes(own) == shapes(tree)
+
+
+DENSE_ARCHS = ("llama3.2-3b", "qwen3-0.6b", "qwen1.5-4b", "granite-3-2b")
+
+
+def dense_cfgs(arch, **kw):
+    """The reduced ``arch`` in float32 in both packages: (JAX, port)."""
+    import dataclasses
+
+    from repro.configs import get_config as jget_config
+    from repro_torch.configs import get_config
+
+    return tuple(dataclasses.replace(g(arch).model.reduced(), dtype="float32",
+                                     **kw)
+                 for g in (jget_config, get_config))
+
+
+def dense_params(jcfg, seed=0):
+    """JAX init of ``jcfg`` from PRNGKey(seed), as numpy, with the zero QKV
+    biases (qwen1.5) and the unit qk-norm scales (qwen3) redrawn from a
+    numpy seed so that their paths count; and the same tree carried to the
+    port. Returns (jax tree, port tree)."""
+    import jax
+
+    from repro.models.lm import model as jM
+    from repro_torch import convert
+
+    jp = jax.device_get(jM.init(jcfg, jax.random.PRNGKey(seed)))
+    rng = np.random.default_rng(100 + seed)
+    for blk in jp["scan"]:
+        a = blk["attn"]
+        for k in ("bq", "bk", "bv"):
+            if k in a:
+                a[k] = (rng.standard_normal(a[k].shape) * 0.5).astype(
+                    np.float32)
+        for k in ("q_norm", "k_norm"):
+            if k in a:
+                a[k] = (1 + rng.standard_normal(a[k].shape) * 0.3).astype(
+                    np.float32)
+    return jp, convert.params_from_jax(jp)
+
+
+def dense_models(archs=DENSE_ARCHS, seed=0):
+    """Each of ``archs``, reduced, float32: configs and one set of weights
+    (``dense_params``) in both packages, as {arch: {jc, tc, jp, tp}}."""
+    out = {}
+    for arch in archs:
+        jc, tc = dense_cfgs(arch)
+        jp, tp = dense_params(jc, seed)
+        out[arch] = dict(jc=jc, tc=tc, jp=jp, tp=tp)
+    return out
+
+
+def normal(rng, shape, scale=1.0) -> np.ndarray:
+    """float32 normal draws from a numpy generator."""
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    got, want = n(got).astype(np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-9))

@@ -19,6 +19,7 @@ import warnings
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from _torch_parity import assert_bits_equal, assert_close, t
 
@@ -197,6 +198,22 @@ def test_quantized_matmul_legacy_codes_match_reference(backend):
                                 qw=jqw)
     assert got.shape == (3, 4, 9)
     assert_close(got, want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("backend", tbs.BACKENDS)
+def test_quantized_matmul_float_weight_equals_prepacked(backend, bits):
+    """A float weight quantized per call (on the code backends without
+    planes) gives the output of its ``prepack`` bit for bit."""
+    from repro_torch.core.packed import prepack
+
+    rng = np.random.default_rng(13)
+    a = t(rng.standard_normal((5, 70)).astype(np.float32))
+    w = t(rng.standard_normal((70, 33)).astype(np.float32))
+    got = tbs.quantized_matmul(a, w, bits, bits, backend=backend)
+    want = tbs.quantized_matmul(a, prepack(w, bits), bits, bits,
+                                backend=backend)
+    assert torch.equal(got, want)
 
 
 def test_unknown_backend_raises():

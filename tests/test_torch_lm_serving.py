@@ -314,7 +314,7 @@ def test_launcher_serves_lm_on_cpu_when_asked(capsys):
 
 def test_launcher_refuses_unported_arch():
     with pytest.raises(SystemExit):
-        tserve.main(["--workload", "lm", "--arch", "qwen3-0.6b",
+        tserve.main(["--workload", "lm", "--arch", "recurrentgemma-9b",
                      "--device", "cpu"])
 
 

@@ -30,9 +30,15 @@ def _smoke():
 
 
 _SMOKE = _smoke()
+# The served LMs' <8:8> calls of kernel 2, which the smoke records and
+# holds on the card.
+_SERVED_LM = {shape for arch, head in _SMOKE.LM_HEADS.items()
+              for shape in _SMOKE.served_lm_matmuls(
+                  _SMOKE.LM_PROJ_SHAPES[arch], head,
+                  [len(p) for p in _SMOKE.lm_prompts(np, head[1])])}
 _SHAPES = sorted({(m, k, n) for m, k, n, *_ in
                   _SMOKE.FUSED_ROWS + _SMOKE.PACKED_ROWS}
-                 | {_SMOKE.WRAP_ROW})
+                 | {_SMOKE.WRAP_ROW} | _SERVED_LM)
 # Beside the smoke rows: a product wide enough to need no split for the
 # card's sake, whose K still needs two slabs; K = 0; one word of K.
 _EXTRA = [(4096, 40000, 4096), (8, 0, 64), (1, 32, 1)]
@@ -98,3 +104,39 @@ def test_plain_versions_wrap_like_the_reference(m, k, n):
     assert_bits_equal(tops.bitserial_matmul(t(qa), a_bits=8, w_bits=8, pw=pw),
                       want)
 
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "llama3.2-3b"])
+def test_served_lm_matmuls_are_the_engines_calls(arch):
+    """``arch`` reduced, <8:8> on "cuda" (the plain versions on the CPU),
+    five prompts on the smoke's ``LM_MAX_BATCH`` slots: the kernel-2 calls
+    the smoke's ``recorded_matmuls`` keeps are ``served_lm_matmuls`` of the
+    prompts, the projections (each prepacked leaf but the head) and the
+    head."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import PIMQuantConfig
+    from repro_torch.models.lm import model as M
+    from repro_torch.serving import Request, SamplerConfig, ServeEngine
+
+    cfg = dataclasses.replace(get_config(arch).model.reduced(),
+                              dtype="float32",
+                              pim=PIMQuantConfig(8, 8, backend="cuda"))
+    params = M.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    eng = ServeEngine(cfg, params, max_batch=_SMOKE.LM_MAX_BATCH, max_len=64,
+                      sampler=SamplerConfig(temperature=0.0), device="cpu")
+    # Chunks 32+4+1, 8+2+1, 2+1, 16+4+1 and 32+16+2; the fifth reuses a slot.
+    lens = (37, 11, 3, 21, 50)
+    rng = np.random.default_rng(0)
+    for rid, n in enumerate(lens):
+        eng.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab, n),
+                           max_new_tokens=3))
+    with _SMOKE.recorded_matmuls() as rec:
+        assert len(eng.run(strict=True)) == len(lens)
+    head = (cfg.d_model, cfg.vocab)
+    proj = {w.shape for _, w in _SMOKE._packed_leaves(eng.params)} - {head}
+    got = sorted((qa.shape[0], qa.shape[1], pw.shape[1])
+                 for qa, pw, _ in rec.calls.values())
+    assert got == _SMOKE.served_lm_matmuls(proj, head, lens)

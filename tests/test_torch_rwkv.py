@@ -345,7 +345,7 @@ def test_bf16_model_close_to_jax(reduced):
 
 
 def test_other_block_kinds_raise_until_ported():
-    _, tc = _cfgs(block_pattern=("attn",))
+    _, tc = _cfgs(block_pattern=("rglru",))
     with pytest.raises(NotImplementedError, match="not ported"):
         M.init(tc, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -372,7 +372,8 @@ def test_rwkv6_3b_config_matches_jax():
 def test_registry_lists_only_ported_archs():
     from repro.configs import ARCH_IDS as JARCH_IDS
 
-    assert ARCH_IDS == ("rwkv6-3b",)
+    assert ARCH_IDS == ("llama3.2-3b", "qwen1.5-4b", "qwen3-0.6b",
+                        "granite-3-2b", "rwkv6-3b")
     assert sorted(ARCH_IDS + NOT_PORTED) == sorted(JARCH_IDS)
     for arch in NOT_PORTED:
         with pytest.raises(KeyError, match="not ported yet"):

@@ -323,8 +323,10 @@ def test_port_sources_import_no_jax_or_repro():
     src = _REPO / "src" / "repro_torch"
     for rel in ("models/lm/config.py", "models/lm/norms.py",
                 "models/lm/rwkv6.py", "models/lm/cache.py",
-                "models/lm/model.py", "configs/base.py",
-                "configs/rwkv6_3b.py", "kernels/rwkv_chunk.py",
+                "models/lm/model.py", "models/lm/rope.py",
+                "models/lm/mlp.py", "models/lm/attention.py",
+                "configs/base.py", "configs/rwkv6_3b.py",
+                "configs/llama3_2_3b.py", "kernels/rwkv_chunk.py",
                 "serving/sampler.py", "serving/engine.py"):
         assert src / rel in sources, rel
     banned = ("jax", "jaxlib", "repro")
