@@ -38,7 +38,10 @@ failed phase, without a GPU, or outside a checkout.
    M = 256, 16 and 1 and at decode M = 4, K = N = 2560 for each other
    power-of-two chunk; every projection shape of llama3.2-3b (3072 x 3072,
    3072 x 1024, 3072 x 8192, 8192 x 3072) at M = 256, 16 and 4 and its
-   tied head 3072 x 128256 at M = 1 and 4; the edges of their launch plan
+   tied head 3072 x 128256 at M = 1 and 4; every projection shape of
+   recurrentgemma-9b (4096 x 4096, 4096 x 256, 4096 x 12288, 12288 x 4096)
+   at M = 256 and 4 and its untied head 4096 x 256000 at M = 1 and 4; the
+   edges of their launch plan
    (each row prints its tile and K splits), and ``WRAP_ROW`` (all codes
    255, P past 2^31).
    Then holds the four Eq. 1 backends' P equal to each other at AlexNet
@@ -98,6 +101,16 @@ failed phase, without a GPU, or outside a checkout.
    call, then kernel 2), each followed by the device ms of the attention
    core at the decode shape (path dtype and float32) and, at <8:8>, of the
    tied head (``lm_part_costs``).
+   Then serves recurrentgemma-9b the same way at its published width and
+   depth (38 layers: 12 units of rglru, rglru, local_attn and two more
+   rglru; d_model and lru_width 4096, 16 query heads and one KV head of
+   256, window 2048, d_ff 12288, vocab 256,000, untied head): bf16 (the
+   float32 masters cast leaf by leaf, ``cast_in_place``; no bit-serial
+   kernel may launch), then <8:8> on "cuda" in float32 (every projection
+   and the head on kernel 2, prepacked through kernel 1: 241 packs; the
+   RG-LRU gate products stay float32 ``torch.matmul``), each followed by
+   ``lm_part_costs`` (the attention core, and the RG-LRU's scan at a
+   256-token chunk, its decode step and its two gate products).
    The warm run of each path serves the timed run's eight requests; at
    <8:8> it keeps the operands of kernel 2's first call at each distinct
    shape, which must be ``served_lm_matmuls`` (every projection at each
@@ -109,10 +122,15 @@ failed phase, without a GPU, or outside a checkout.
    the card and on the CPU from the same weights: a 48-token prompt
    (chunks 32 + 16; rwkv6-3b's through kernel 5 on the card) and 4 greedy
    tokens: equal tokens, and prefill logits within rtol 1e-3 and atol
-   1e-3*max|cpu|; llama3.2-3b also with the int8 KV cache, where
-   ``quantize_kv`` on the first k tensor gives equal codes and scales on
-   both devices. Then one layer of each at <8:8> on "cuda" against the CPU
-   (prefill of two prompts into a 4-slot grid, two decode steps at M = 4):
+   1e-3*max|cpu| (the prompt prefilled in those chunks on both devices);
+   llama3.2-3b also with the int8 KV cache, where ``quantize_kv`` on the
+   first k tensor gives equal codes and scales on both devices.
+   recurrentgemma-9b the same way at one unit (rglru, rglru, local_attn),
+   with a 2,100-token prompt (chunks 2048 + 32 + 16 + 4), so the
+   2,048-row ring wraps, and 4 greedy tokens past it. Then one layer of
+   each at <8:8> on "cuda" against the CPU (recurrentgemma-9b one rglru
+   and one local_attn layer; prefill of two prompts into a 4-slot grid,
+   two decode steps at M = 4):
    prepacked planes equal bit for bit, every quantized product within
    1e-5 of the CPU's on the same input, logits within 0.1 in relative L2
    (``lm_pim_gpu_vs_cpu``).
@@ -182,6 +200,13 @@ FUSED_ROWS = [
     *[(m, k, n, 8, 8, True) for m in (256, 16, LM_MAX_BATCH)
       for k, n in ((3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072))],
     (1, 3072, 128256, 8, 8, True), (LM_MAX_BATCH, 3072, 128256, 8, 8, True),
+    # recurrentgemma-9b at M = 256 and decode's M: K x N is 4096 x 4096 (wq,
+    # wo and the RG-LRU's w_x, w_gate, w_out), 4096 x 256 (wk, wv of the one
+    # KV head), 4096 x 12288 (w_in, w_gate), 12288 x 4096 (w_out), and the
+    # untied head 4096 x 256000 (M = 1 in prefill).
+    *[(m, k, n, 8, 8, True) for m in (256, LM_MAX_BATCH)
+      for k, n in ((4096, 4096), (4096, 256), (4096, 12288), (12288, 4096))],
+    (1, 4096, 256000, 8, 8, True), (LM_MAX_BATCH, 4096, 256000, 8, 8, True),
     *[(m, 2560, 2560, 8, 8, False) for m in (128, 64, 32, 8, 2, 1)],
     *MATMUL_EDGES]
 PACKED_ROWS = [
@@ -247,8 +272,11 @@ SERVED_BUCKETS = (8, 4)
 LM_PROJ_SHAPES = {
     "rwkv6-3b": ((2560, 2560), (2560, 8960), (8960, 2560)),
     "llama3.2-3b": ((3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072)),
+    "recurrentgemma-9b": ((4096, 4096), (4096, 256), (4096, 12288),
+                          (12288, 4096)),
 }
-LM_HEADS = {"rwkv6-3b": (2560, 65536), "llama3.2-3b": (3072, 128256)}
+LM_HEADS = {"rwkv6-3b": (2560, 65536), "llama3.2-3b": (3072, 128256),
+            "recurrentgemma-9b": (4096, 256000)}
 
 # Rows (M, K, bits) of kernel 1, timed: the padded activation maps the
 # "cuda" paths pack at 224 px in a bucket of 8 (ResNet-50's stem, s0 3x3
@@ -929,12 +957,12 @@ def prepack_layouts(torch):
             pl = packed.prepack(lin, bits)
             pc = packed.prepack_conv(conv, bits)
         kh, kw, c, o = conv.shape
-        codes = pc.mat.codes.reshape(kh, kw, c, o)
+        codes = pc.mat.codes32.reshape(kh, kw, c, o)
         want = {
             "linear": (pl.planes, kp.bitplane_pack_plain(
-                pl.codes.T.contiguous(), bits)),
+                pl.codes32.T.contiguous(), bits)),
             "conv mat": (pc.mat.planes, kp.bitplane_pack_plain(
-                pc.mat.codes.T.contiguous(), bits)),
+                pc.mat.codes32.T.contiguous(), bits)),
             "conv fused": (pc.fused_planes, kp.bitplane_pack_plain(
                 codes.permute(0, 3, 1, 2).contiguous(), bits).permute(
                     1, 0, 2, 3, 4))}
@@ -1093,28 +1121,35 @@ def gpu_vs_cpu(torch, np, module, model, backend, image):
 
 # Kernels each served LM path must launch. A bf16 path launches none of
 # the bit-serial kernels (its projections are ``torch.matmul``); at <8:8>
-# llama3.2-3b packs its tied head through kernel 1 at every call.
+# llama3.2-3b packs its tied head through kernel 1 at every call, and an
+# untied head (rwkv6-3b, recurrentgemma-9b) is packed once, at prepack.
 LM_PATH_KERNELS = {
     ("rwkv6-3b", "bf16"): ("wkv_chunked",),
     ("rwkv6-3b", "<8:8> cuda"): ("wkv_chunked", "bitserial_matmul_fused"),
     ("llama3.2-3b", "bf16"): (),
     ("llama3.2-3b", "<8:8> cuda"): ("bitserial_matmul_fused",
                                     "bitplane_pack"),
+    ("recurrentgemma-9b", "bf16"): (),
+    ("recurrentgemma-9b", "<8:8> cuda"): ("bitserial_matmul_fused",),
 }
 BITSERIAL_KERNELS = ("bitplane_pack", "bitserial_matmul_fused",
                      "bitserial_matmul_packed", "conv2d_bitserial_fused")
 
 def lm_part_costs(torch, cfg, params, label, clock_hz):
-    """Device ms (calls queued behind a spin) of two parts of a dense
-    model's decode step that the profile does not name on their own: the
+    """Device ms (calls queued behind a spin) of parts of an attention
+    model's step that the profile does not name on their own: the
     attention core (scores, softmax, PV) of one layer at the decode shape
     (``LM_MAX_BATCH`` slots against ``LM_MAX_LEN`` cached rows) with the
     path's KV dtype, and again with float32 q, k and v (the difference is
-    the cost of the float32 upcasts); and at <8:8> the tied head at M =
+    the cost of the float32 upcasts); at <8:8> the tied head at M =
     ``LM_MAX_BATCH`` (quantize ``embed.T``, pack it through kernel 1,
-    kernel 2, the correction)."""
+    kernel 2, the correction); and with RG-LRU blocks, the first one's
+    recurrence at a 256-token prefill chunk (gates and scan, and the scan
+    alone) and at a decode step of ``LM_MAX_BATCH`` slots, and its two
+    float32 gate products at both M."""
     from repro_torch.models.lm import attention as A
     from repro_torch.models.lm import model as M
+    from repro_torch.models.lm import rglru as RG
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     b, hkv, d = LM_MAX_BATCH, cfg.n_kv_heads, cfg.head_dim
@@ -1140,6 +1175,29 @@ def lm_part_costs(torch, cfg, params, label, clock_hz):
         with torch.no_grad():
             row["tied_head_device_ms"] = device_ms(
                 lambda: M.lm_head(params, cfg, x), 5, clock_hz)
+    if "rglru" in cfg.blocks:
+        p = {k: v[0] for k, v in params["scan"][0]["rglru"].items()}
+        w = cfg.lru_width or cfg.d_model
+        x256, x4 = randn(1, 256, w).to(dt), randn(b, w).to(dt)
+        h1, h4 = randn(1, w), randn(b, w)
+        a, bb = RG._gates(p, x256)
+        wa, wi = p["w_a"], p["w_i"]
+
+        def gate_products(x):
+            xf = x.to(torch.float32)
+            return (xf @ wa.to(torch.float32), xf @ wi.to(torch.float32))
+
+        row["rglru_device_ms"] = dict(
+            scan_256=device_ms(lambda: RG.rglru_scan(p, x256, h1), 20,
+                               clock_hz),
+            affine_scan_256=device_ms(lambda: RG.affine_scan(a, bb), 20,
+                                      clock_hz),
+            step_decode=device_ms(lambda: RG.rglru_step(p, x4, h4), 20,
+                                  clock_hz),
+            gate_products_256=device_ms(lambda: gate_products(x256), 20,
+                                        clock_hz),
+            gate_products_decode=device_ms(lambda: gate_products(x4), 20,
+                                           clock_hz))
     print(json.dumps(row), flush=True)
 
 
@@ -1277,25 +1335,33 @@ def serve_lm(torch, np, ops, cfg, params, label, max_new):
     return launches, matmuls.calls
 
 
-def lm_gpu_vs_cpu(torch, np, ops, arch, kv_quant=False):
-    """``arch`` at full width, 2 layers, float32, one set of weights, on the
-    card and on the CPU (plain versions): a 48-token prompt (chunks 32 +
-    16) and 4 greedy tokens. Equal tokens; prefill logits within rtol 1e-3
-    and atol 1e-3*max|cpu|. With ``kv_quant`` (the int8 KV cache), also
-    ``quantize_kv`` on the first k tensor the CPU run quantized gives equal
-    codes and scales on both devices."""
+def lm_gpu_vs_cpu(torch, np, ops, arch, kv_quant=False, n_layers=2,
+                  prompt_len=48):
+    """``arch`` at full width, ``n_layers`` layers, float32, one set of
+    weights, on the card and on the CPU (plain versions): a
+    ``prompt_len``-token prompt prefilled in the engine's power-of-two
+    chunks (32 + 16 at 48), and 4 greedy tokens. Equal tokens; the last
+    chunk's logits within rtol 1e-3 and atol 1e-3*max|cpu|. With
+    ``kv_quant`` (the int8 KV cache), also ``quantize_kv`` on the first k
+    tensor the CPU run quantized gives equal codes and scales on both
+    devices."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.models.lm import cache as C
     from repro_torch.models.lm import model as M
     from repro_torch.serving import Request, SamplerConfig, ServeEngine
+    from repro_torch.serving.engine import _pow2_chunks
 
-    cfg = dataclasses.replace(get_config(arch).model, n_layers=2,
+    cfg = dataclasses.replace(get_config(arch).model, n_layers=n_layers,
                               dtype="float32", kv_quant=kv_quant)
-    params = M.init(cfg, torch.Generator().manual_seed(1), device="cpu")
-    prompt = np.random.default_rng(2).integers(0, cfg.vocab, 48).astype(
-        np.int32)
+    # Drawn on the card, kept on the CPU: the CPU's generator draws ~110 M
+    # normals a second, ~20 s for a full-width embedding and head.
+    params = M.init(cfg, torch.Generator(device="cuda").manual_seed(1),
+                    device="cpu")
+    prompt = np.random.default_rng(2).integers(
+        0, cfg.vocab, prompt_len).astype(np.int32)
+    chunks, max_len = _pow2_chunks(prompt_len), prompt_len + 16
     logits, toks, kv_inputs = {}, {}, []
     real_quantize_kv = C.quantize_kv
 
@@ -1309,11 +1375,15 @@ def lm_gpu_vs_cpu(torch, np, ops, arch, kv_quant=False):
         C.quantize_kv = spy if device == "cpu" else real_quantize_kv
         try:
             with torch.no_grad():
-                lo, _ = M.prefill(M.to_device(params, device), cfg,
-                                  torch.from_numpy(prompt)[None].to(device),
-                                  M.init_state(cfg, 1, 64, device))
+                p_dev = M.to_device(params, device)
+                st, pos = M.init_state(cfg, 1, max_len, device), 0
+                for c in chunks:
+                    lo, st = M.prefill(p_dev, cfg, torch.from_numpy(
+                        prompt[pos:pos + c])[None].to(device), st)
+                    pos += c
+                del p_dev, st
             logits[device] = lo.cpu().numpy()
-            eng = ServeEngine(cfg, params, max_batch=1, max_len=64,
+            eng = ServeEngine(cfg, params, max_batch=1, max_len=max_len,
                               sampler=SamplerConfig(temperature=0.0),
                               device=device)
             eng.submit(Request(rid=0, prompt=prompt, max_new_tokens=4))
@@ -1333,8 +1403,9 @@ def lm_gpu_vs_cpu(torch, np, ops, arch, kv_quant=False):
         raise AssertionError(
             f"{label} GPU vs CPU: tokens {toks['cuda']} vs {toks['cpu']}, "
             f"max |dlogit| {err} (max|cpu| {scale}), launches {launches}")
-    row = dict(gpu_vs_cpu=label, layers=2, prompt=48, tokens=toks["cuda"],
-               max_abs_diff=err, max_abs_cpu=scale,
+    row = dict(gpu_vs_cpu=label, layers=n_layers, prompt=prompt_len,
+               chunks=chunks, tokens=toks["cuda"], max_abs_diff=err,
+               max_abs_cpu=scale,
                launches={k: v for k, v in launches.items() if v})
     if kv_quant:
         x = kv_inputs[0]
@@ -1346,6 +1417,19 @@ def lm_gpu_vs_cpu(torch, np, ops, arch, kv_quant=False):
         row["quantize_kv_equal"] = dict(shape=list(x.shape), codes=True,
                                         scales=True)
     print(json.dumps(row), flush=True)
+
+
+def cast_in_place(torch, tree, dtype):
+    """``cast_params`` leaf by leaf in place: each float32 leaf of two or
+    more dimensions is replaced by its cast, so the float32 copy is freed
+    before the next cast is made (the tree must hold the only reference),
+    and recurrentgemma-9b's 41.8 GB of float32 and 20.9 GB of bf16 are
+    never on the card together."""
+    for k, v in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
+        if isinstance(v, (dict, list)):
+            cast_in_place(torch, v, dtype)
+        elif v.dtype == torch.float32 and v.dim() >= 2:
+            tree[k] = v.to(dtype)
 
 
 def _packed_leaves(tree, path=""):
@@ -1362,11 +1446,15 @@ def _packed_leaves(tree, path=""):
             yield from _packed_leaves(v, f"{path}/{i}")
 
 
-def lm_pim_gpu_vs_cpu(torch, np, ops, arch):
-    """``arch`` at full width, 1 layer, <8:8> on "cuda", float32, one set of
-    weights, on the card and on the CPU. Two prompts (48 = 32 + 16 and 20 =
-    16 + 4) are prefilled chunk by chunk into slots 0 and 1 of a 4-slot
-    grid, then two decode steps run at M = 4 on the same tokens.
+def lm_pim_gpu_vs_cpu(torch, np, ops, arch, block_pattern=None,
+                      shared=None):
+    """``arch`` at full width, 1 layer (of ``block_pattern``'s kind where
+    given), <8:8> on "cuda", float32, one set of weights, on the card and
+    on the CPU. Two prompts (48 = 32 + 16 and 20 = 16 + 4) are prefilled
+    chunk by chunk into slots 0 and 1 of a 4-slot grid, then two decode
+    steps run at M = 4 on the same tokens. Calls that pass one ``shared``
+    dict serve the first call's embedding and head, and the CPU prepacks
+    the head once (a 4096 x 256,000 head takes it ~25 s).
 
     The path is chaotic end to end: one float ulp of jitter flips an
     activation code at a quantization boundary, a flip moves an output by a
@@ -1393,9 +1481,16 @@ def lm_pim_gpu_vs_cpu(torch, np, ops, arch):
     from repro_torch.models.lm import model as M
     from repro_torch.serving.engine import _pow2_chunks
 
+    kind = {} if block_pattern is None else {"block_pattern": block_pattern}
     model = dataclasses.replace(get_config(arch).model, n_layers=1,
-                                dtype="float32")
-    params = M.init(model, torch.Generator().manual_seed(3), device="cpu")
+                                dtype="float32", **kind)
+    params = M.init(model, torch.Generator(device="cuda").manual_seed(3),
+                    device="cpu")
+    if shared is not None:
+        if "embed" in shared:
+            params.update(embed=shared["embed"], head=shared["head"])
+        else:
+            shared.update(embed=params["embed"], head=params["head"])
     rng = np.random.default_rng(4)
     prompts = [rng.integers(0, model.vocab, n).astype(np.int64)
                for n in (48, 20)]
@@ -1411,8 +1506,13 @@ def lm_pim_gpu_vs_cpu(torch, np, ops, arch):
             8, 8, backend=backend))
         ops.reset_launch_counts()
         with torch.no_grad():
-            p = packed[device] = M.prepack_params(M.to_device(params, device),
-                                                  cfg.pim)
+            tree = M.to_device(params, device)
+            if device == "cpu" and shared and "head_cpu" in shared:
+                tree["head"] = shared["head_cpu"]
+            p = packed[device] = M.prepack_params(tree, cfg.pim)
+            if device == "cpu" and shared is not None:
+                shared["head_cpu"] = p["head"]
+            del tree
             st = M.init_state(cfg, LM_MAX_BATCH, 64, device)
             out = []
             if device == "cuda":
@@ -1482,7 +1582,8 @@ def lm_pim_gpu_vs_cpu(torch, np, ops, arch):
         raise AssertionError(
             f"{arch} <8:8> GPU vs CPU: logits relative L2 {rel_l2}, "
             f"{len(calls)} products, launches {launches}")
-    print(json.dumps(dict(gpu_vs_cpu=f"{arch} <8:8> cuda", layers=1,
+    label = arch if block_pattern is None else f"{arch} {block_pattern[0]}"
+    print(json.dumps(dict(gpu_vs_cpu=f"{label} <8:8> cuda", layers=1,
                           prompts=[len(x) for x in prompts], decode_steps=2,
                           max_batch=LM_MAX_BATCH, packed_leaves=len(leaves),
                           products=len(calls), product_max_rel_err=call_err,
@@ -1709,6 +1810,30 @@ def main(argv) -> int:
         check_served_matmuls(np, kc, "llama3.2-3b", calls)
     del calls
 
+    # -- 7c. serving recurrentgemma-9b (RG-LRU + local attention) --------------
+    arch = get_config("recurrentgemma-9b").model
+    with phase("serve recurrentgemma-9b bf16"), no_plain_pack():
+        params = lm.init(arch, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+        cast_in_place(torch, params, torch.bfloat16)
+        serve_lm(torch, np, ops, arch, params, "bf16", max_new=32)
+        lm_part_costs(torch, arch, params, "bf16", kc.clock_hz)
+        del params
+        torch.cuda.empty_cache()
+    with phase("serve recurrentgemma-9b <8:8> cuda"), no_plain_pack():
+        cfg = dataclasses.replace(arch, dtype="float32",
+                                  pim=PIMQuantConfig(8, 8, backend="cuda"))
+        params = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+        _, calls = serve_lm(torch, np, ops, cfg, params, "<8:8> cuda",
+                            max_new=16)
+        lm_part_costs(torch, cfg, params, "<8:8> cuda", kc.clock_hz)
+        del params
+        torch.cuda.empty_cache()
+    with phase("kernel 2 at recurrentgemma-9b's served matmuls"):
+        check_served_matmuls(np, kc, "recurrentgemma-9b", calls)
+    del calls
+
     # -- 8. the LMs against the CPU's plain versions ---------------------------
     with phase("gpu vs cpu rwkv6-3b"):
         lm_gpu_vs_cpu(torch, np, ops, "rwkv6-3b")
@@ -1717,6 +1842,16 @@ def main(argv) -> int:
         lm_gpu_vs_cpu(torch, np, ops, "llama3.2-3b")
         lm_gpu_vs_cpu(torch, np, ops, "llama3.2-3b", kv_quant=True)
         lm_pim_gpu_vs_cpu(torch, np, ops, "llama3.2-3b")
+    with phase("gpu vs cpu recurrentgemma-9b"):
+        # One unit (rglru, rglru, local_attn); 2,100 tokens in chunks of
+        # 2048 + 32 + 16 + 4 wrap the 2,048-row ring.
+        lm_gpu_vs_cpu(torch, np, ops, "recurrentgemma-9b", n_layers=3,
+                      prompt_len=2100)
+        shared = {}
+        for kind in ("rglru", "local_attn"):
+            lm_pim_gpu_vs_cpu(torch, np, ops, "recurrentgemma-9b",
+                              block_pattern=(kind,), shared=shared)
+        del shared
 
     kernels = [
         summary(kc.rows, "bitplane_pack", launches["bitplane_pack"],

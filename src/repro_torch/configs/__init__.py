@@ -2,8 +2,9 @@
 architectures ported so far.
 
 ``get_config("<arch-id>")`` returns the published :class:`ArchConfig` of a
-ported architecture. The JAX package registers ten; the five whose block
-kinds are not ported yet raise a ``KeyError`` that names them as such
+ported architecture. The JAX package registers ten; the four whose block
+kinds are not ported yet (MoE FFNs, and the stub frontends with their
+cross-attention) raise a ``KeyError`` that names them as such
 (``ROADMAP.md`` Queue 1, item 2).
 """
 from __future__ import annotations
@@ -19,12 +20,13 @@ _MODULES = {
     "qwen3-0.6b": "qwen3_0_6b",
     "granite-3-2b": "granite_3_2b",
     "rwkv6-3b": "rwkv6_3b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 # Registered by the JAX package, still to port with their block kinds.
 NOT_PORTED = (
-    "grok-1-314b", "phi3.5-moe-42b-a6.6b", "recurrentgemma-9b",
-    "musicgen-large", "llama-3.2-vision-90b",
+    "grok-1-314b", "phi3.5-moe-42b-a6.6b", "musicgen-large",
+    "llama-3.2-vision-90b",
 )
 
 ARCH_IDS = tuple(_MODULES)

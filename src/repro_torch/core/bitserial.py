@@ -108,11 +108,16 @@ def _pack_codes(qw: torch.Tensor, wq: QuantParams,
                 planes: bool = True) -> PackedWeight:
     """Weight codes (K, N) as a PackedWeight (planes of ``qw.T``). With
     ``planes=False`` the planes are left out (None): the backends of
-    ``CODE_BACKENDS`` contract the codes and never read them."""
+    ``CODE_BACKENDS`` contract the codes and never read them.
+
+    The codes stay int32 here, unlike ``prepack``'s bytes: this is the
+    per-call route of a float weight (a tied head), whose codes live for
+    one product, so narrowing them would add a pass and save no memory
+    that outlives the call."""
     return PackedWeight(
         codes=qw, planes=_kernels().pack_planes(qw.T.contiguous(), wq.bits)
         if planes else None,
-        col_sums=qw.sum(0).to(torch.int32), wq=wq)
+        col_sums=qw.sum(0, dtype=torch.int32), wq=wq)
 
 
 def int_matmul(qa, qw, a_bits, w_bits, backend="popcount"):
@@ -126,13 +131,15 @@ def int_matmul_prepacked(qa: torch.Tensor, w: PackedWeight, a_bits: int,
     """P = qa @ w.codes using whatever representation the backend wants.
 
     The popcount and cuda backends consume the prepacked planes directly:
-    the weight side of quantize -> slice -> pack never runs again.
+    the weight side of quantize -> slice -> pack never runs again. The
+    code backends widen byte codes first (``int-direct`` to float64,
+    ``mxu-plane`` to int32 before its shifts).
     """
     w_bits = w.bits
     if backend == "int-direct":
         return int_matmul_direct(qa, w.codes)
     if backend == "mxu-plane":
-        return int_matmul_mxu_plane(qa, w.codes, a_bits, w_bits)
+        return int_matmul_mxu_plane(qa, w.codes32, a_bits, w_bits)
     ops = _kernels()
     if backend == "popcount":
         pa = ops.pack_planes(qa, a_bits)

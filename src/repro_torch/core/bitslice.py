@@ -65,20 +65,47 @@ def unpack_bits(packed: torch.Tensor, k: int) -> torch.Tensor:
                         )[..., :k].to(torch.int32)
 
 
+# Hacker's Delight's transpose8: the (shift, mask) of its three steps.
+_TRANSPOSE8 = ((7, 0x00AA00AA00AA00AA), (14, 0x0000CCCC0000CCCC),
+               (28, 0x00000000F0F0F0F0))
+
+
+def _transpose8(x: torch.Tensor) -> torch.Tensor:
+    """Each int64 as an 8 x 8 bit matrix, transposed: bit i of byte j moves
+    to bit j of byte i. Every mask clears the sign bits that the
+    arithmetic ``>>`` shifts in."""
+    for s, m in _TRANSPOSE8:
+        t = (x ^ (x >> s)) & m
+        x = x ^ t ^ (t << s)
+    return x
+
+
 def slice_and_pack(q: torch.Tensor, bits: int) -> torch.Tensor:
     """Quantized codes (..., K) -> packed planes (bits, ..., ceil(K/32)).
 
     Pads K up to a lane multiple with zeros (zeros are AND-neutral, so
-    padding never perturbs popcount results).
+    padding never perturbs popcount results). The codes go a byte of bits
+    at a time: eight lanes' bytes make an int64 whose 8 x 8 bit transpose
+    holds plane b of those lanes in its byte b, and a plane's word is the
+    four such bytes of its 32 lanes, lowest lanes first (bytes are read in
+    the machine's little-endian order). This is ``pack_bits`` of each
+    plane ``(q >> b) & 1``, as the JAX package packs, without a 32-bit
+    word or an int64 per code and plane.
     """
     k = q.shape[-1]
     kp = pad_to_lanes(k)
     if kp != k:
         q = torch.nn.functional.pad(q, (0, kp - k))
-    # One plane at a time: pack_bits widens to int64, and all planes at
-    # once would hold 16 bytes a code and plane (25 GB for an 8-bit
-    # 128,256 x 3,072 head).
-    return torch.stack([pack_bits((q >> b) & 1) for b in range(bits)])
+    lead = q.shape[:-1]
+    planes = []
+    for lo in range(0, bits, 8):
+        byte = ((q >> lo) & 0xFF).to(torch.uint8).contiguous()
+        x = _transpose8(byte.view(torch.int64))       # 8 lanes an int64
+        # (..., KW, 4 lane groups, 8 planes) -> (8 planes, ..., KW, 4)
+        by = x.view(torch.uint8).reshape(*lead, kp // LANE_BITS, 4, 8)
+        by = by.movedim(-1, 0)[:min(8, bits - lo)].contiguous()
+        planes.append(by.view(torch.int32)[..., 0])
+    return torch.cat(planes)
 
 
 def popcount(x: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,11 @@ channel-packed per-kernel-row planes consumed by the fused implicit-im2col
 kernel (:mod:`repro_torch.kernels.conv2d_fused`). Planes are int32 bit
 patterns (see :mod:`.bitslice`), packed by ``kernels.ops.pack_planes``: on
 a CUDA tensor kernel 1, on a CPU tensor its plain version.
+
+Codes of at most 8 bits are kept as ``uint8``, a quarter of the int32 the
+JAX package keeps: the planes and column sums are computed from the int32
+codes first, and every reader of ``codes`` widens them (``codes32``), so
+no product or dequantized value moves. Wider codes stay int32.
 """
 from __future__ import annotations
 
@@ -33,7 +38,9 @@ def pack_planes(q: torch.Tensor, bits: int) -> torch.Tensor:
 class PackedWeight:
     """A (K, N) weight quantized and bit-plane-packed once.
 
-    codes     (K, N) int32          — Eq. 2 codes (the multi-bit matrix)
+    codes     (K, N) uint8 at <= 8 bits, int32 above
+                                    — Eq. 2 codes (the multi-bit matrix);
+                                      read them through ``codes32``
     planes    (bits, N, KW) int32   — K-packed planes of ``codes.T``
     col_sums  (N,) int32            — sum_k codes[k, n] (Sw of the algebra)
     wq        QuantParams           — scale/qmin/bits of the weight
@@ -52,8 +59,15 @@ class PackedWeight:
     def shape(self) -> tuple:
         return tuple(self.codes.shape)
 
+    @property
+    def codes32(self) -> torch.Tensor:
+        """The codes as int32, the JAX package's type (a new tensor when
+        they are kept as bytes)."""
+        return self.codes.to(torch.int32)
+
     def to_float(self) -> torch.Tensor:
-        """Dequantized master weight."""
+        """Dequantized master weight (``dequantize`` casts the codes to
+        float32 itself)."""
         return dequantize(self.codes, self.wq)
 
     def to(self, device) -> PackedWeight:
@@ -93,13 +107,22 @@ class PackedConvWeight:
                                 self.kernel_shape)
 
 
+def narrow_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """int32 codes of ``bits`` bits as kept in a PackedWeight: uint8 at
+    <= 8 bits (every code fits a byte), int32 above."""
+    return codes.to(torch.uint8) if bits <= 8 else codes
+
+
 def prepack(w: torch.Tensor, w_bits: int) -> PackedWeight:
     """Quantize + bit-slice + lane-pack a (K, N) weight once."""
     wq = calibrate_minmax(w, w_bits)
     codes = quantize(w, wq)
     planes = pack_planes(codes.T.contiguous(), w_bits)
-    return PackedWeight(codes=codes, planes=planes,
-                        col_sums=codes.sum(0).to(torch.int32), wq=wq)
+    # Summed in int32, as the JAX package sums (wrapping alike): an int64
+    # sum would first copy the codes to int64.
+    col_sums = codes.sum(0, dtype=torch.int32)
+    return PackedWeight(codes=narrow_codes(codes, w_bits), planes=planes,
+                        col_sums=col_sums, wq=wq)
 
 
 def prepack_conv(w: torch.Tensor, w_bits: int) -> PackedConvWeight:
@@ -109,9 +132,9 @@ def prepack_conv(w: torch.Tensor, w_bits: int) -> PackedConvWeight:
     codes = quantize(w, wq)                              # (KH, KW, C, O)
     flat = codes.reshape(kh * kw * c, o)                 # im2col order
     mat = PackedWeight(
-        codes=flat,
+        codes=narrow_codes(flat, w_bits),
         planes=pack_planes(flat.T.contiguous(), w_bits),
-        col_sums=flat.sum(0).to(torch.int32),
+        col_sums=flat.sum(0, dtype=torch.int32),
         wq=wq,
     )
     # Fused layout: per kernel row kh, O-major, channels packed into words.

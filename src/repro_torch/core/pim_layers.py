@@ -174,7 +174,7 @@ def pim_conv2d(x: torch.Tensor, w, b: torch.Tensor | None = None,
         mask = F.pad(torch.ones((1, x.shape[1], x.shape[2], 1),
                                 dtype=torch.float32, device=x.device),
                      (0, 0, padding, padding, padding, padding))
-        wsum = w.mat.codes.reshape(kh, kw, c, o).sum(2)          # (KH, KW, O)
+        wsum = w.mat.codes32.reshape(kh, kw, c, o).sum(2)        # (KH, KW, O)
         sw = _nchw_conv(mask, wsum[:, :, None, :].to(torch.float32),
                         stride, 0)                               # (1,OH,OW,O)
         k_real = c * _box_sum(mask[..., 0], kh, kw, stride)[..., None]

@@ -5,7 +5,8 @@
       [--precision '<8:8>' --backend cuda] [--reduced --device cpu]
 
 serves an LM architecture (the dense ``llama3.2-3b``, ``qwen3-0.6b``,
-``qwen1.5-4b``, ``granite-3-2b``, or ``rwkv6-3b``; random weights from a
+``qwen1.5-4b``, ``granite-3-2b``, ``rwkv6-3b``, or the RG-LRU and
+local-attention hybrid ``recurrentgemma-9b``; random weights from a
 seed, the arch's dtype; with ``--precision '<W:I>'`` every projection runs
 the paper's bit-serial pipeline in float32) through the
 continuous-batching ``ServeEngine``.

@@ -1,12 +1,12 @@
-"""Grouped-query attention with the variants the dense archs need.
+"""Grouped-query attention with the variants the ported archs need.
 
-Covers MHA/GQA (any kv:q ratio), QKV bias (qwen1.5), per-head qk_norm
-(qwen3), the sliding-window mask, attention-logit softcap (grok), and the
-shared prefill/decode code path driven by explicit position tensors. The
-paths are the self-attention with no cache (``forward``) and against the
-full KV cache (prefill and decode). Cross-attention and the ring-buffer
-cache of local attention come with their block kinds (``ROADMAP.md``
-Queue 1, item 2).
+Covers MHA/GQA/MQA (any kv:q ratio), QKV bias (qwen1.5), per-head qk_norm
+(qwen3), sliding-window local attention (recurrentgemma), attention-logit
+softcap (grok), and the shared prefill/decode code path driven by explicit
+position tensors. The paths are the self-attention with no cache
+(``forward``), against the full KV cache (prefill and decode), and against
+the ring buffer of a ``local_attn`` block (``ring``). Cross-attention comes
+with its block kind (``ROADMAP.md`` Queue 1, item 2).
 
 All projections route through :func:`repro_torch.core.pim_layers.
 pim_linear`, so an arch config with ``pim`` set executes every QKVO matmul
@@ -116,19 +116,65 @@ def gqa_scores_softmax_v(q, k, v, mask, softcap: float = 0.0,
     return o.reshape(b, sq, hq, d).to(q.dtype)
 
 
+def _ring_positions(last: torch.Tensor, wsize: int) -> torch.Tensor:
+    """(B, w) position each ring slot holds when ``last`` (B, 1) is the last
+    position written: the largest p <= last with p % w == slot (below 0
+    for a slot never written)."""
+    slot = torch.arange(wsize, dtype=last.dtype, device=last.device)[None]
+    return last - torch.remainder(last - slot, wsize)
+
+
+def _ring_attend(cache: dict, k, v, q_pos, cache_index, window: int):
+    """The ring branch: writes the new keys and values into the ring in
+    place and returns (k, v, mask) to attend over.
+
+    Decode (one token) writes slot ``index % w`` first, then attends over
+    the whole ring. A chunk attends over the ring as it was before the
+    chunk (a copy taken first) followed by its own tokens, then writes its
+    last ``min(w, S)`` tokens to their ``p % w`` slots: chunked prefill
+    starts chunks at offsets above 0, so the window reaches back across the
+    chunk boundary. Cached slots with a derived position below 0 were never
+    written and are masked."""
+    b, sq = k.shape[:2]
+    wsize = cache["k"].shape[1]
+    dev = k.device
+    idx = torch.as_tensor(cache_index, dtype=torch.int32,
+                          device=dev).reshape(-1, 1).expand(b, 1)
+    if sq == 1:
+        C.update_ring_cache(cache, k, v, idx[:, 0])
+        k, v = cache["k"], cache["v"]
+        kv_pos = _ring_positions(idx, wsize)
+    else:
+        cached_pos = _ring_positions(idx - 1, wsize)
+        k_all = torch.cat([cache["k"].to(k.dtype), k], dim=1)
+        v_all = torch.cat([cache["v"].to(v.dtype), v], dim=1)
+        take = min(wsize, sq)
+        slots = torch.remainder(q_pos[:, -take:], wsize).long()
+        bidx = torch.arange(b, device=dev)[:, None]
+        cache["k"][bidx, slots] = k[:, -take:].to(cache["k"].dtype)
+        cache["v"][bidx, slots] = v[:, -take:].to(cache["v"].dtype)
+        k, v = k_all, v_all
+        kv_pos = torch.cat([cached_pos, q_pos], dim=1)
+    mask = attention_mask(q_pos, kv_pos, window=window)
+    mask &= (kv_pos >= 0)[:, None, None, :]
+    return k, v, mask
+
+
 def attention(p, cfg: ModelConfig, x: torch.Tensor, q_pos: torch.Tensor,
               kv_src=None, cache: dict | None = None, cache_index=None,
-              ring: bool = False):
+              window: int = 0, ring: bool = False):
     """One attention block. Returns (out (B, Sq, d), the cache | None).
 
-    ``x`` (B, Sq, d); ``q_pos`` (B, Sq) int32. With ``cache``, the new keys
-    and values are written into it in place at ``cache_index`` (B,) and
-    the queries attend over its first ``cache_index + Sq`` rows."""
-    if kv_src is not None or ring:
+    ``x`` (B, Sq, d); ``q_pos`` (B, Sq) int32; ``window`` > 0 limits each
+    query to the last ``window`` positions (``local_attn``). With ``cache``,
+    the new keys and values are written into it in place at
+    ``cache_index`` (B,) and the queries attend over its first
+    ``cache_index + Sq`` rows; with ``ring`` the cache is a ring buffer of
+    the last ``w`` tokens (:func:`_ring_attend`)."""
+    if kv_src is not None:
         raise NotImplementedError(
-            "cross-attention and the ring-buffer cache are not ported yet "
-            "(ROADMAP.md Queue 1, item 2: rglru and local attention, MoE, "
-            "stubs)")
+            "cross-attention is not ported yet (ROADMAP.md Queue 1, item 2: "
+            "MoE, then the stub frontends and cross-attention)")
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     b, sq, _ = x.shape
     pim = cfg.pim
@@ -143,12 +189,14 @@ def attention(p, cfg: ModelConfig, x: torch.Tensor, q_pos: torch.Tensor,
     k = apply_rope(k, q_pos, cfg.rope_theta)
 
     scales = {}
-    if cache is not None:
+    if cache is not None and ring:
+        k, v, mask = _ring_attend(cache, k, v, q_pos, cache_index, window)
+    elif cache is not None:
         cache = C.update_kv_cache(cache, k, v, cache_index)
         k, v = cache["k"], cache["v"]
         kv_pos = torch.arange(k.shape[1], dtype=torch.int32,
                               device=x.device)[None].expand(b, -1)
-        mask = attention_mask(q_pos, kv_pos)
+        mask = attention_mask(q_pos, kv_pos, window=window)
         valid = torch.as_tensor(cache_index, device=x.device).reshape(
             -1, 1) + sq                                         # (B, 1)
         mask &= (kv_pos < valid)[:, None, None, :]
@@ -156,7 +204,7 @@ def attention(p, cfg: ModelConfig, x: torch.Tensor, q_pos: torch.Tensor,
             scales = {"k_scale": cache["k_scale"],
                       "v_scale": cache["v_scale"]}
     else:
-        mask = attention_mask(q_pos, q_pos)
+        mask = attention_mask(q_pos, q_pos, window=window)
     o = gqa_scores_softmax_v(q, k, v, mask, softcap=cfg.attn_softcap,
                              **scales)
     out = pim_linear(o.reshape(b, sq, hq * hd), p["wo"], cfg=pim)

@@ -7,10 +7,13 @@ steps and never copies it to the host. ``attn`` blocks keep a KV cache of
 (B, max_len, n_kv_heads, head_dim) in the model's dtype, or with
 ``cfg.kv_quant`` int8 codes plus float32 per-(token, head) scales; an
 update writes only the new rows, in place, at each sequence's own offset.
-RWKV keeps O(1) decode state: the (H, D, D) WKV matrix and the two
-token-shift vectors. Ring buffers (``local_attn``), the cross-attention
-cache and RG-LRU states come with their block kinds (``ROADMAP.md`` Queue
-1, item 2).
+``local_attn`` blocks keep a ring buffer of ``min(local_window, max_len)``
+rows, always float (even with ``kv_quant``): decode writes slot ``index %
+window`` in place. RWKV and RG-LRU keep O(1) decode state: the (H, D, D)
+WKV matrix and the two token-shift vectors, or the RG-LRU's last
+``conv1d_width - 1`` conv inputs and its float32 carry ``h``. The
+cross-attention cache comes with its block kind (``ROADMAP.md`` Queue 1,
+item 2).
 """
 from __future__ import annotations
 
@@ -20,9 +23,10 @@ from .config import ModelConfig
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
-                  dtype=torch.bfloat16, device=None):
+                  dtype=torch.bfloat16, device=None,
+                  force_float: bool = False):
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    if cfg.kv_quant:
+    if cfg.kv_quant and not force_float:
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
                 "k_scale": torch.zeros(shape[:3], dtype=torch.float32,
@@ -78,6 +82,39 @@ def update_kv_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
     return cache
 
 
+def init_ring_cache(cfg: ModelConfig, batch: int, window: int,
+                    dtype=torch.bfloat16, device=None):
+    """Sliding-window KV ring buffer of a ``local_attn`` block (O(window)
+    state). Stays float: the window is small and its slots are rewritten
+    constantly."""
+    return init_kv_cache(cfg, batch, window, dtype=dtype, device=device,
+                         force_float=True)
+
+
+def update_ring_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
+                      index) -> dict:
+    """Write (B, 1, H, D) at each sequence's slot ``index % window``, in
+    place, and return ``cache`` (decode)."""
+    b = k_new.shape[0]
+    window = cache["k"].shape[1]
+    dev = cache["k"].device
+    idx = torch.as_tensor(index, dtype=torch.int64, device=dev)
+    slot = torch.remainder(idx.reshape(-1).expand(b), window)[:, None]
+    bidx = torch.arange(b, device=dev)[:, None]
+    cache["k"][bidx, slot] = k_new.to(cache["k"].dtype)
+    cache["v"][bidx, slot] = v_new.to(cache["v"].dtype)
+    return cache
+
+
+def init_rglru_state(cfg: ModelConfig, batch: int, device=None):
+    """The conv's last ``conv1d_width - 1`` inputs and the carry ``h``,
+    both float32 whatever the model's dtype."""
+    w = cfg.lru_width or cfg.d_model
+    return {"conv": torch.zeros((batch, cfg.conv1d_width - 1, w),
+                                dtype=torch.float32, device=device),
+            "h": torch.zeros((batch, w), dtype=torch.float32, device=device)}
+
+
 def init_rwkv_state(cfg: ModelConfig, batch: int, device=None):
     """float32 carries, whatever the model's dtype."""
     heads = cfg.d_model // cfg.rwkv_head_dim
@@ -97,13 +134,19 @@ def init_layer_state(kind: str, cfg: ModelConfig, batch: int, max_len: int,
                      device=None, dtype=torch.bfloat16):
     if kind == "attn":
         return init_kv_cache(cfg, batch, max_len, dtype=dtype, device=device)
+    if kind == "local_attn":
+        return init_ring_cache(cfg, batch,
+                               min(cfg.local_window or max_len, max_len),
+                               dtype=dtype, device=device)
+    if kind == "rglru":
+        return init_rglru_state(cfg, batch, device)
     if kind == "rwkv":
         return init_rwkv_state(cfg, batch, device)
-    if kind in ("local_attn", "cross_attn", "rglru"):
+    if kind == "cross_attn":
         raise NotImplementedError(
-            f"decode state of block kind {kind!r} is not ported yet "
-            "(ROADMAP.md Queue 1, item 2: rglru and local attention, "
-            "MoE, stubs)")
+            "decode state of block kind 'cross_attn' is not ported yet "
+            "(ROADMAP.md Queue 1, item 2: MoE, then the stub frontends "
+            "and cross-attention)")
     raise ValueError(kind)
 
 

@@ -14,10 +14,12 @@ Entry points:
 
 State updates are in place: ``prefill`` and ``decode_step`` write each
 layer's new carries into the stacked state tensors they were given (and
-return the same dict), and an ``attn`` layer writes only its new KV rows,
-so a decode step allocates no second copy of the (max_batch, ...) state.
-The ``attn`` (dense decoder) and ``rwkv`` block kinds are ported; the
-others, and MoE FFNs, raise ``NotImplementedError``.
+return the same dict), and an ``attn`` or ``local_attn`` layer writes only
+its new KV rows (into the ring buffer for ``local_attn``), so a decode
+step allocates no second copy of the (max_batch, ...) state. The ``attn``
+(dense decoder), ``local_attn`` and ``rglru`` (the recurrentgemma hybrid)
+and ``rwkv`` block kinds are ported; ``cross_attn`` and MoE FFNs raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from repro_torch.core.pim_layers import pim_linear
 from . import attention as A
 from . import cache as C
 from . import mlp as MLP
+from . import rglru as RG
 from . import rwkv6 as RW
 from .config import ModelConfig
 from .norms import apply_norm, init_norm
@@ -65,16 +68,21 @@ def layer_plan(cfg: ModelConfig) -> tuple[tuple, int, tuple]:
 # Per-block init / apply
 # ---------------------------------------------------------------------------
 
+_ATTN_KINDS = ("attn", "local_attn")
+_FFN_KINDS = _ATTN_KINDS + ("rglru",)
+
+
 def _not_ported(what: str):
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue 1, item 2: rglru and "
-        "local attention, MoE, stubs); the port runs 'attn' and 'rwkv'")
+        f"{what} is not ported yet (ROADMAP.md Queue 1, item 2: MoE, then "
+        "the stub frontends and cross-attention); the port runs 'attn', "
+        "'local_attn', 'rglru' and 'rwkv'")
 
 
 def _check_ported(kind: str, cfg: ModelConfig):
-    if kind not in ("attn", "rwkv"):
+    if kind not in _FFN_KINDS + ("rwkv",):
         raise _not_ported(f"block kind {kind!r}")
-    if kind == "attn" and cfg.moe:
+    if kind in _FFN_KINDS and cfg.moe:
         raise _not_ported("the MoE FFN")
 
 
@@ -82,10 +90,13 @@ def init_block(kind: str, cfg: ModelConfig, generator, device=None):
     _check_ported(kind, cfg)
     d = cfg.d_model
     p = {"norm1": init_norm(cfg.norm, d, device)}
-    if kind == "attn":
+    if kind in _ATTN_KINDS:
         p["attn"] = A.init_attention(cfg, generator, device)
         if cfg.post_attn_norm:
             p["norm_post"] = init_norm(cfg.norm, d, device)
+    elif kind == "rglru":
+        p["rglru"] = RG.init_rglru_block(cfg, generator, device)
+    if kind in _FFN_KINDS:
         p["norm2"] = init_norm(cfg.norm, d, device)
         p["ffn"] = MLP.init_mlp(cfg, generator, device)
         return p
@@ -100,15 +111,23 @@ def apply_block(kind: str, p, cfg: ModelConfig, x, q_pos=None, state=None,
     """Pre-norm residual block. Returns (x, new_state).
 
     ``q_pos`` (B, S) int32 and ``cache_index`` (B,) are the positions an
-    ``attn`` block needs (the ``rwkv`` block ignores them); its new state
-    is ``state`` itself, written in place."""
+    attention block needs (the recurrent blocks ignore them); a ``local_attn``
+    block attends within ``cfg.local_window`` and keeps its ring buffer in
+    ``state``. A cache comes back as ``state`` itself, written in place."""
     _check_ported(kind, cfg)
     h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
-    if kind == "attn":
-        y, new_inner = A.attention(p["attn"], cfg, h, q_pos, cache=state,
-                                   cache_index=cache_index)
-        if cfg.post_attn_norm:
-            y = apply_norm(cfg.norm, p["norm_post"], y, cfg.norm_eps)
+    if kind in _FFN_KINDS:
+        if kind == "rglru":
+            y, new_inner = RG.rglru_block(p["rglru"], cfg, h, state)
+        else:
+            local = kind == "local_attn"
+            y, new_inner = A.attention(
+                p["attn"], cfg, h, q_pos, cache=state,
+                cache_index=cache_index,
+                window=cfg.local_window if local else 0,
+                ring=local and state is not None)
+            if cfg.post_attn_norm:
+                y = apply_norm(cfg.norm, p["norm_post"], y, cfg.norm_eps)
         x = x + y
         h2 = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
         return x + MLP.mlp(p["ffn"], cfg, h2), new_inner
@@ -181,11 +200,13 @@ def to_device(params, device):
 
 # Projection leaves that route through pim_linear — the prepack targets.
 # (Tied embeddings stay float: the embedding gather is not a GEMM, and the
-# tied head quantizes ``embed.T`` per call, as the JAX package does.) The
-# rglru input projection ``w_x`` comes with its block kind.
+# tied head quantizes ``embed.T`` per call, as the JAX package does. The
+# RG-LRU gate weights ``w_a``/``w_i`` stay float: their products are
+# float32 ``torch.matmul``.)
 _PIM_PROJ_KEYS = frozenset({
     "wq", "wk", "wv", "wo",                      # attention
-    "w_in", "w_out", "w_gate",                   # mlp
+    "w_in", "w_out", "w_gate",                   # mlp / rglru
+    "w_x",                                       # rglru input proj
     "w_r", "w_k", "w_v", "w_g", "w_o",           # rwkv6
     "head",                                      # untied lm head
 })
@@ -364,9 +385,9 @@ def prefill_into_slot(params, cfg: ModelConfig, tokens, state, slot: int,
 
     Slot reuse must not leak the previous occupant's state into the new
     request: KV rows are position-masked, but recurrent carries (RWKV wkv
-    and token shifts) are position-less, so every leaf of the slot is
-    zeroed on a request's first chunk (``start_pos == 0``); later chunks
-    continue the carried state.
+    and token shifts, RG-LRU h and conv inputs) and ring buffers are
+    position-less, so every leaf of the slot is zeroed on a request's first
+    chunk (``start_pos == 0``); later chunks continue the carried state.
     """
     s1 = _slot_view(state, slot)
     if start_pos == 0:

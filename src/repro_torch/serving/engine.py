@@ -12,15 +12,19 @@ live flag), and runs two paths:
     threads across chunks and no pad token enters the recurrence. On an
     ``rwkv`` model every chunk of 16 or more tokens runs the chunked WKV
     kernel; on a dense model a chunk at an offset above 0 attends over the
-    KV rows the earlier chunks wrote. The first token is sampled on the
-    device and read once.
+    KV rows the earlier chunks wrote; on the hybrid (``rglru`` and
+    ``local_attn``) a chunk scans the RG-LRU from the carried state (a
+    one-token chunk takes the decode step) and attends over the ring
+    buffer as it was before the chunk plus its own tokens. The first token
+    is sampled on the device and read once.
   * **``decode_n``.** Up to ``drain_steps`` fused decode + sample steps per
     dispatch when no admissions are pending. The control block stays on
     the device; only the (n, B) sampled tokens and done flags cross to the
     host, in one copy per dispatch, never the (B, vocab) logits. Dead slots
     decode into their frozen position (a KV write lands on one row, which
-    the next occupant overwrites before it can attend to it); the grid
-    never reshapes.
+    the next occupant overwrites before it can attend to it; recurrent
+    carries and ring rows, which are position-less, are zeroed by the next
+    occupant's first chunk); the grid never reshapes.
 
 Continuous batching: when a sequence finishes (EOS or budget), its slot is
 released and the next queued request prefills into it. While the queue is

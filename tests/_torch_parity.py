@@ -156,3 +156,42 @@ def rel_err(got, want) -> float:
     got, want = n(got).astype(np.float32), np.asarray(want, np.float32)
     assert got.shape == want.shape, (got.shape, want.shape)
     return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-9))
+
+
+HYBRID = "recurrentgemma-9b"
+
+
+def hybrid_cfgs(**kw):
+    """reduced recurrentgemma-9b (float32 unless ``dtype`` is given) in
+    both packages: (JAX, port)."""
+    import dataclasses
+
+    from repro.configs import get_config as jget_config
+    from repro_torch.configs import get_config
+
+    kw = {"dtype": "float32", **kw}
+    return tuple(dataclasses.replace(g(HYBRID).model.reduced(), **kw)
+                 for g in (jget_config, get_config))
+
+
+def hybrid_params(jcfg, seed=0, dtype=None):
+    """JAX init of ``jcfg`` from PRNGKey(seed) as numpy, with the zero
+    RG-LRU gate biases redrawn from a numpy seed so that their paths count,
+    cast like ``cast_params`` when ``dtype`` is given (a JAX dtype); and the
+    same tree carried to the port. Returns (JAX tree, port tree)."""
+    import jax
+
+    from repro.models.lm import model as jM
+    from repro_torch import convert
+
+    jp = jax.device_get(jax.jit(jM.init, static_argnums=0)(
+        jcfg, jax.random.PRNGKey(seed)))
+    rng = np.random.default_rng(200 + seed)
+    for blk in jp["scan"] + jp["rest"]:
+        rg = blk.get("rglru")
+        if rg is not None:
+            for k in ("b_a", "b_i"):
+                rg[k] = normal(rng, rg[k].shape, 0.5)
+    if dtype is not None:
+        jp = jax.device_get(jM.cast_params(jp, dtype))
+    return jp, convert.params_from_jax(jp)

@@ -117,7 +117,7 @@ def test_prepack_bit_exact(bits, k, nn):
     jp = jpk.prepack(jnp.asarray(w), bits)
     tp = tpk.prepack(t(w), bits)
     assert tp.bits == bits and tp.shape == (k, nn)
-    assert_bits_equal(tp.codes, jp.codes)
+    assert_bits_equal(tp.codes32, jp.codes)
     assert_bits_equal(tp.planes, jp.planes)
     assert_bits_equal(tp.col_sums, jp.col_sums)
     assert_bits_equal(tp.wq.scale, jp.wq.scale)
@@ -138,7 +138,7 @@ def test_prepack_conv_bit_exact(bits, shape):
     assert tp.kernel_shape == jp.kernel_shape == shape
     assert tuple(tp.fused_planes.shape) == (kh, bits, o, kw, (c + 31) // 32)
     assert_bits_equal(tp.fused_planes, jp.fused_planes)
-    assert_bits_equal(tp.mat.codes, jp.mat.codes)
+    assert_bits_equal(tp.mat.codes32, jp.mat.codes)
     assert_bits_equal(tp.mat.planes, jp.mat.planes)
     assert_bits_equal(tp.mat.col_sums, jp.mat.col_sums)
     assert_bits_equal(tp.to_float(), jp.to_float())

@@ -29,6 +29,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import PIMQuantConfig
 from repro_torch.core.packed import PackedWeight
 from repro_torch.models.lm import attention as A
+from repro_torch.models.lm import cache as C
 from repro_torch.models.lm import mlp as MLP
 from repro_torch.models.lm import model as M
 from repro_torch.models.lm import norms, rope
@@ -213,13 +214,19 @@ def test_gqa_core_fully_masked_row_is_uniform():
 
 
 def test_attention_later_kinds_raise():
+    """Cross-attention raises, naming its queue item; the ring branch of
+    local attention runs (``tests/test_torch_ring_cache.py``)."""
     jc, tc = dense_cfgs("llama3.2-3b")
     p = A.init_attention(tc, torch.Generator().manual_seed(0))
     x = torch.zeros((1, 2, tc.d_model))
     pos = torch.zeros((1, 2), dtype=torch.int32)
-    for kw in (dict(kv_src=x), dict(ring=True)):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-            A.attention(p, tc, x, pos, **kw)
+    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
+        A.attention(p, tc, x, pos, kv_src=x)
+    ring = C.init_ring_cache(tc, 1, 4, dtype=torch.float32)
+    out, got = A.attention(p, tc, x, pos, cache=ring,
+                           cache_index=torch.zeros(1, dtype=torch.int32),
+                           window=4, ring=True)
+    assert got is ring and out.shape == x.shape
 
 
 # -- whole model ------------------------------------------------------------------------
@@ -305,14 +312,13 @@ def test_prepack_params_packs_the_leaves_jax_packs(dense):
                                     "w_gate", "head"}   # qwen1.5: untied
     jw = jpk["scan"][0]["attn"]["wq"]
     for r, pw in enumerate(tpk["scan"][0]["attn"]["wq"]):
-        assert_bits_equal(pw.codes, np.asarray(jw.codes)[r])
+        assert_bits_equal(pw.codes32, np.asarray(jw.codes)[r])
     assert isinstance(tpk["embed"], torch.Tensor)     # the gather: float
 
 
 def test_pim_proj_keys_are_the_references_ported_kinds():
-    """The reference's set less the rglru input projection, whose block
-    kind is not ported."""
-    assert M._PIM_PROJ_KEYS == jM._PIM_PROJ_KEYS - {"w_x"}
+    """The reference's set, the rglru input projection ``w_x`` included."""
+    assert M._PIM_PROJ_KEYS == jM._PIM_PROJ_KEYS
 
 
 @pytest.mark.parametrize("arch", DENSE_ARCHS)
@@ -347,6 +353,12 @@ def test_moe_and_later_block_kinds_raise():
     moe = dataclasses.replace(tc, moe=MoEConfig(n_experts=4, top_k=2))
     with pytest.raises(NotImplementedError, match="MoE"):
         M.init(moe, torch.Generator().manual_seed(0), device="cpu")
-    local = dataclasses.replace(tc, block_pattern=("local_attn",))
+    for kind in ("local_attn", "rglru"):   # an MoE FFN in any block kind
+        moe_k = dataclasses.replace(moe, block_pattern=(kind,))
+        with pytest.raises(NotImplementedError, match="MoE"):
+            M.init(moe_k, torch.Generator().manual_seed(0), device="cpu")
+    cross = dataclasses.replace(tc, block_pattern=("cross_attn",))
     with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-        M.init_state(local, 1, 8, device="cpu")
+        M.init_state(cross, 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
+        M.init(cross, torch.Generator().manual_seed(0), device="cpu")

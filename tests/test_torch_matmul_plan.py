@@ -105,7 +105,8 @@ def test_plain_versions_wrap_like_the_reference(m, k, n):
                       want)
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "llama3.2-3b"])
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "llama3.2-3b",
+                                  "recurrentgemma-9b"])
 def test_served_lm_matmuls_are_the_engines_calls(arch):
     """``arch`` reduced, <8:8> on "cuda" (the plain versions on the CPU),
     five prompts on the smoke's ``LM_MAX_BATCH`` slots: the kernel-2 calls

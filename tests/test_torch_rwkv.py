@@ -302,7 +302,7 @@ def test_prepack_params_planes_equal_bit_for_bit(reduced):
             assert len(tw) == jc.n_layers
             for r in range(jc.n_layers):
                 assert_bits_equal(tw[r].planes, jw.planes[r])
-                assert_bits_equal(tw[r].codes, jw.codes[r])
+                assert_bits_equal(tw[r].codes32, jw.codes[r])
                 assert_bits_equal(tw[r].col_sums, jw.col_sums[r])
                 assert_bits_equal(tw[r].wq.scale, jw.wq.scale[r])
                 checked += 1
@@ -345,7 +345,7 @@ def test_bf16_model_close_to_jax(reduced):
 
 
 def test_other_block_kinds_raise_until_ported():
-    _, tc = _cfgs(block_pattern=("rglru",))
+    _, tc = _cfgs(block_pattern=("cross_attn",))
     with pytest.raises(NotImplementedError, match="not ported"):
         M.init(tc, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -373,7 +373,7 @@ def test_registry_lists_only_ported_archs():
     from repro.configs import ARCH_IDS as JARCH_IDS
 
     assert ARCH_IDS == ("llama3.2-3b", "qwen1.5-4b", "qwen3-0.6b",
-                        "granite-3-2b", "rwkv6-3b")
+                        "granite-3-2b", "rwkv6-3b", "recurrentgemma-9b")
     assert sorted(ARCH_IDS + NOT_PORTED) == sorted(JARCH_IDS)
     for arch in NOT_PORTED:
         with pytest.raises(KeyError, match="not ported yet"):
