@@ -43,7 +43,14 @@ failed phase, without a GPU, or outside a checkout.
    at M = 256 and 4 and its untied head 4096 x 256000 at M = 1 and 4; the
    edges of their launch plan
    (each row prints its tile and K splits), and ``WRAP_ROW`` (all codes
-   255, P past 2^31).
+   255, P past 2^31). Kernel 2's batched entry (one launch an MoE expert
+   bank) is held at ``BATCHED_ROWS``: phi3.5-moe's banks (16 experts,
+   4096 x 6400 and 6400 x 4096) at M = 8, 40 and 80, grok-1's (8 experts,
+   6144 x 32768 and 32768 x 6144) at M = 8, ragged rows at E = 3, and
+   ``BATCHED_WRAP_ROW``; each timed row prints its plan, ``kernel_ms`` /
+   ``kernel_device_ms``, ``bound_ms``, a float64 ``torch.bmm`` of the
+   codes (``library_ms``) and the device ms of the same bank as E single
+   launches (``loop_device_ms``).
    Then holds the four Eq. 1 backends' P equal to each other at AlexNet
    conv1's im2col shape, and kernel 5 against its plain version at a
    batch-1 prefill's shapes (40 heads of 64, S = 16, 64, 256, 512), a
@@ -80,8 +87,9 @@ failed phase, without a GPU, or outside a checkout.
    equal top-1, logits within rtol 1e-3 and atol 1e-3*max|cpu| (the
    integer P is exact on both; the global average pool and the float
    epilogues reduce in another order on the GPU).
-7. Serves rwkv6-3b at its published width and depth (32 layers, d_model
-   2560, vocab 65,536; random weights from a seed) through ``ServeEngine``:
+7. Serves rwkv6-3b at its published width (d_model 2560, vocab 65,536;
+   random weights from a seed) and 8 of its 32 layers (``RWKV_LAYERS``)
+   through ``ServeEngine``:
    in bf16 (projections in ``torch.matmul``, every prefill chunk of 16 or
    more tokens through kernel 5), then with <8:8> on the "cuda" backend in
    float32 (every projection and the head through kernel 2 as well). Eight
@@ -92,9 +100,9 @@ failed phase, without a GPU, or outside a checkout.
    kernels launched (and, at <8:8>, that prepack packed every weight
    through kernel 1, one pack a projection) and the logits are finite,
    then profiles one admission and one decode dispatch for the idle share.
-   Then serves llama3.2-3b the same way at its published width and depth
-   (28 layers, d_model 3072, 24 query and 8 KV heads of 128, d_ff 8192,
-   vocab 128,256, tied embeddings): bf16 (projections, scores and PV in
+   Then serves llama3.2-3b the same way at its published width and 14 of
+   its 28 layers (``LLAMA_LAYERS``; d_model 3072, 24 query and 8 KV heads
+   of 128, d_ff 8192, vocab 128,256, tied embeddings): bf16 (projections, scores and PV in
    ``torch.matmul``, no bit-serial kernel may launch), then <8:8> on
    "cuda" in float32 (every projection on kernel 2, prepacked through
    kernel 1; the tied head quantized and packed through kernel 1 at every
@@ -111,13 +119,26 @@ failed phase, without a GPU, or outside a checkout.
    RG-LRU gate products stay float32 ``torch.matmul``), each followed by
    ``lm_part_costs`` (the attention core, and the RG-LRU's scan at a
    256-token chunk, its decode step and its two gate products).
+   Then serves phi3.5-moe-42b-a6.6b the same way at its published width
+   (d_model 4096, 32 query and 8 KV heads of 128, 16 experts top-2 with
+   d_ff 6400, SiLU-gated, layernorm, vocab 32,064, untied head) and 8 of
+   its 32 layers (``PHI_LAYERS``: 80 GB forces the cut): bf16 (no
+   bit-serial kernel), then <8:8> on "cuda" in float32 (the attention
+   projections and the head on kernel 2, each expert bank stage one
+   launch of kernel 2's batched entry: 24 a decode step; 57 packs through
+   kernel 1), each followed by ``lm_part_costs`` (the first MoE layer's
+   router and dispatch, expert FFN and combine at a decode step and a
+   256-token chunk); the serving line carries ``moe_drop_frac`` from
+   ``stats()``.
    The warm run of each path serves the timed run's eight requests; at
    <8:8> it keeps the operands of kernel 2's first call at each distinct
    shape, which must be ``served_lm_matmuls`` (every projection at each
    power-of-two chunk of the prompts, 1 to 256, and at decode's M = 4; the
-   head at M = 1 and 4), and each is then held with ``torch.equal``
-   against the plain version at its own launch plan (untimed; each row
-   prints its plan).
+   head at M = 1 and 4), and of its batched entry's, which must be
+   ``served_bank_matmuls`` (each bank at the capacity of every chunk and
+   of a decode step), and each is then held with ``torch.equal`` against
+   the plain version at its own launch plan (untimed; each row prints its
+   plan).
 8. Serves rwkv6-3b and llama3.2-3b at full width, 2 layers, float32, on
    the card and on the CPU from the same weights: a 48-token prompt
    (chunks 32 + 16; rwkv6-3b's through kernel 5 on the card) and 4 greedy
@@ -127,12 +148,13 @@ failed phase, without a GPU, or outside a checkout.
    first k tensor gives equal codes and scales on both devices.
    recurrentgemma-9b the same way at one unit (rglru, rglru, local_attn),
    with a 2,100-token prompt (chunks 2048 + 32 + 16 + 4), so the
-   2,048-row ring wraps, and 4 greedy tokens past it. Then one layer of
-   each at <8:8> on "cuda" against the CPU (recurrentgemma-9b one rglru
-   and one local_attn layer; prefill of two prompts into a 4-slot grid,
-   two decode steps at M = 4):
-   prepacked planes equal bit for bit, every quantized product within
-   1e-5 of the CPU's on the same input, logits within 0.1 in relative L2
+   2,048-row ring wraps, and 4 greedy tokens past it; phi3.5-moe at one
+   layer. Then one layer of each at <8:8> on "cuda" against the CPU
+   (recurrentgemma-9b one rglru and one local_attn layer; prefill of two
+   prompts into a 4-slot grid, two decode steps at M = 4):
+   prepacked planes and banks equal bit for bit, every quantized product
+   within 1e-5 of the CPU's on the same input, every bank product equal
+   to the CPU's, logits within 0.1 in relative L2
    (``lm_pim_gpu_vs_cpu``).
 
 Kernel 5 (the chunked WKV) is float32 arithmetic that sums in another
@@ -142,8 +164,9 @@ order than its plain version, so it is held to the reference's tolerances
 Each phase prints its wall seconds on a line of its own. The last three
 lines are the card's name and power limit, the per-kernel summary
 ``{"kernels": [...]}`` (launches counted on the ResNet-50 path for kernels
-1-3, on the AlexNet popcount path for kernel 4 and on the bf16 rwkv6-3b
-path for kernel 5), and ``{"ok": true, "device": {...}}``.
+1-3, on the AlexNet popcount path for kernel 4, on the bf16 rwkv6-3b
+path for kernel 5 and on the <8:8> phi3.5-moe path for kernel 2's batched
+entry), and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -223,6 +246,32 @@ PACKED_ROWS = [
 # (M, K, N) with every code 255 at <8:8>: P = 65,025 * K passes 2^31, and K
 # passes one 32,768-K slab.
 WRAP_ROW = (8, 40000, 64)
+# Rows (E, M, K, N, w_bits, a_bits, timed) of kernel 2's batched entry, one
+# launch an MoE expert bank: phi3.5-moe's banks (16 experts; w_in and
+# w_gate 4096 x 6400, w_out 6400 x 4096) at the capacity of a decode step
+# of LM_MAX_BATCH tokens (8 rows), of a 256-token prefill chunk (40) and of
+# a 512-token one (80); grok-1's (8 experts; 6144 x 32768 and 32768 x
+# 6144) at decode; then ragged rows at E = 3: M off the 16- and 64-row
+# tiles, K off a word, N off the tile, bits below 8.
+BATCHED_ROWS = [
+    *[(16, m, k, n, 8, 8, True) for m in (8, 40, 80)
+      for k, n in ((4096, 6400), (6400, 4096))],
+    *[(8, 8, k, n, 8, 8, True) for k, n in ((6144, 32768), (32768, 6144))],
+    (3, 37, 70, 131, 8, 8, False), (3, 17, 300, 40, 4, 4, False),
+    (3, 65, 33, 200, 8, 8, False), (3, 5, 2560, 96, 2, 7, False)]
+# (E, M, K, N) with every code 255 at <8:8>, through the batched entry.
+BATCHED_WRAP_ROW = (2, 8, 40000, 64)
+# phi3.5-moe's depth on the card: its published 32 layers are 41.87 B
+# parameters (83.7 GB in bf16), so it is served at 8 (10.67 B; at <8:8>
+# the float32 masters 42.7 GB, byte codes and planes ~10.5 GB each).
+PHI = "phi3.5-moe-42b-a6.6b"
+PHI_LAYERS = 8
+# The served depth of two earlier LM paths, cut from their published 32
+# and 28 layers to keep the script well inside its time limit: their
+# serving phases are host-bound and scale with depth, and the widths, the
+# kernels each layer launches and the calls they give kernel 2 stay.
+RWKV_LAYERS = 8
+LLAMA_LAYERS = 14
 # Rows (N, H, C, O, k, stride, pad) of kernel 3 at <8:8>: the convs the
 # served paths give it at 224 px in a bucket of 8.
 CONV_ROWS = [
@@ -269,14 +318,17 @@ SERVED_BUCKETS = (8, 4)
 # and records the operands of kernel 2's first call at each distinct
 # shape, which must be ``served_lm_matmuls``; each is held against the
 # plain version at its own launch plan (``KernelChecks.served_matmul``).
+# phi3.5-moe's expert banks are kernel 2's batched calls
+# (``served_bank_matmuls``).
 LM_PROJ_SHAPES = {
     "rwkv6-3b": ((2560, 2560), (2560, 8960), (8960, 2560)),
     "llama3.2-3b": ((3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072)),
     "recurrentgemma-9b": ((4096, 4096), (4096, 256), (4096, 12288),
                           (12288, 4096)),
+    PHI: ((4096, 4096), (4096, 1024)),
 }
 LM_HEADS = {"rwkv6-3b": (2560, 65536), "llama3.2-3b": (3072, 128256),
-            "recurrentgemma-9b": (4096, 256000)}
+            "recurrentgemma-9b": (4096, 256000), PHI: (4096, 32064)}
 
 # Rows (M, K, bits) of kernel 1, timed: the padded activation maps the
 # "cuda" paths pack at 224 px in a bucket of 8 (ResNet-50's stem, s0 3x3
@@ -309,6 +361,11 @@ KERNEL_INFO = {
     "bitserial_matmul_packed": dict(
         source="src/repro_torch/kernels/csrc/bitserial_matmul.cu",
         replaces="src/repro/kernels/bitserial_matmul.py:120"),
+    # The same Pallas kernel under jax.vmap over an expert bank
+    # (src/repro/models/lm/moe.py:120-138): one batched pallas_call.
+    "bitserial_matmul_fused_batched": dict(
+        source="src/repro_torch/kernels/csrc/bitserial_matmul.cu",
+        replaces="src/repro/kernels/bitserial_matmul.py:159"),
     "conv2d_bitserial_fused": dict(
         source="src/repro_torch/kernels/csrc/conv2d_fused.cu",
         replaces="src/repro/kernels/conv2d_fused.py:73"),
@@ -494,11 +551,113 @@ class KernelChecks:
             nbytes=4 * ab * m * kw + 4 * wb * n * kw + 4 * m * n,
             macs=m * n * k, timing=timing, plan=self._plan(m, n, kw))
 
-    def _plan(self, m, n, kw):
-        """Kernel 2/4's launch plan, as printed."""
+    def batched(self, e, m, k, n, wb, ab, timing=True):
+        """Kernel 2's batched entry on an (E, K, N) bank prepacked on the
+        card: equal to its plain version (the plain fused version expert by
+        expert, ``plain_ms`` the time of that one checking call); timed
+        beside a float64 ``torch.bmm`` of the codes (the library reading)
+        and the device time of the same bank as E single launches
+        (``loop_device_ms``)."""
+        torch = self.torch
+        from repro_torch.core.packed import prepack
         from repro_torch.kernels import bitserial_matmul as km
 
-        plan = km._plan(m, n, kw, km._sm_count(self.torch.device("cuda", 0)))
+        qa = self._codes((e, m, k), ab)
+        w = torch.randn((e, k, n), generator=self.gen, device="cuda")
+        bank = prepack(w, wb)
+        del w
+        pw = bank.planes
+        kw = pw.shape[-1]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = km.bitserial_matmul_fused_batched_plain(qa, pw, ab, wb)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        got = km.bitserial_matmul_fused_batched(qa, pw, ab, wb)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"bitserial_matmul_fused_batched "
+                                 f"{(e, m, k, n)} <{wb}:{ab}>: kernel != "
+                                 "plain")
+        del want
+        row = dict(kernel="bitserial_matmul_fused_batched",
+                   shape=dict(E=e, M=m, K=k, N=n), bits=f"<{wb}:{ab}>",
+                   max_abs_err=0, plan=self._plan(m, n, kw, e))
+        if timing:
+            def kernel():
+                return km.bitserial_matmul_fused_batched(qa, pw, ab, wb)
+
+            def loop():
+                return [km.bitserial_matmul_fused(qa[i], pw[i], ab, wb)
+                        for i in range(e)]
+
+            a64, w64 = qa.double(), bank.codes.double()
+            bound_ms, bound_by = self._bound(
+                4 * e * m * k + 4 * e * wb * n * kw + 4 * e * m * n,
+                e * m * n * k)
+            kernel_ms, kernel_host_ms = timed_ms(kernel, 20)
+            row.update(
+                kernel_ms=kernel_ms, kernel_host_ms=kernel_host_ms,
+                kernel_device_ms=device_ms(kernel, 20, self.clock_hz),
+                loop_device_ms=device_ms(loop, 20, self.clock_hz),
+                plain_ms=plain_ms,
+                library_ms=timed_ms(lambda: torch.bmm(a64, w64), 5)[0],
+                library_device_ms=device_ms(lambda: torch.bmm(a64, w64), 5,
+                                            self.clock_hz),
+                bound_ms=bound_ms, bound_by=bound_by)
+            del a64, w64
+        print(json.dumps(row), flush=True)
+        self.rows.append(row)
+
+    def batched_wrap(self, e, m, k, n):
+        """Every code 255 at <8:8> through the batched entry: equal to its
+        plain version, and every expert's P equal to 65,025 * K wrapped mod
+        2^32 like the reference's int32."""
+        torch = self.torch
+        from repro_torch.kernels import bitplane_pack as kp
+        from repro_torch.kernels import bitserial_matmul as km
+
+        qa = torch.full((e, m, k), 255, dtype=torch.int32, device="cuda")
+        pw = kp.bitplane_pack_plain(
+            torch.full((e * n, k), 255, dtype=torch.int32, device="cuda"),
+            8).reshape(8, e, n, -1).transpose(0, 1).contiguous()
+        p = 65025 * k % 2**32
+        want = torch.full((e, m, n), p - 2**32 * (p >= 2**31),
+                          dtype=torch.int32, device="cuda")
+        plain = km.bitserial_matmul_fused_batched_plain(qa, pw, 8, 8)
+        if not torch.equal(plain, want):
+            raise AssertionError(f"batched plain version does not wrap to "
+                                 f"{want[0, 0, 0]}")
+        self._record("bitserial_matmul_fused_batched",
+                     dict(E=e, M=m, K=k, N=n, codes=255), "<8:8>",
+                     km.bitserial_matmul_fused_batched(qa, pw, 8, 8), plain,
+                     None, None, None, 0, 0, timing=False,
+                     plan=self._plan(m, n, pw.shape[-1], e))
+
+    def served_bank(self, arch, qa, pw, a_bits):
+        """Kernel 2's batched entry on operands a served MoE path gave it,
+        untimed: equal to its plain version at that call's own plan."""
+        from repro_torch.kernels import bitserial_matmul as km
+
+        e, m, k = qa.shape
+        _, w_bits, n, kw = pw.shape
+        self._record(
+            "bitserial_matmul_fused_batched",
+            dict(served=arch, E=e, M=m, K=k, N=n), f"<{w_bits}:{a_bits}>",
+            km.bitserial_matmul_fused_batched(qa, pw, a_bits, w_bits),
+            km.bitserial_matmul_fused_batched_plain(qa, pw, a_bits, w_bits),
+            None, None, None, 0, 0, timing=False,
+            plan=self._plan(m, n, kw, e))
+
+    def _plan(self, m, n, kw, e=1):
+        """Kernel 2/4's launch plan (of E products at once for the batched
+        entry), as printed."""
+        from repro_torch.kernels import bitserial_matmul as km
+
+        plan = km._plan(m, n, kw, km._sm_count(self.torch.device("cuda", 0)),
+                        e)
         return dict(variant=plan.variant, tile=km.TILES[plan.variant][:2],
                     split_words=plan.split_words, splits=plan.splits)
 
@@ -852,27 +1011,35 @@ class recorded_convs:
 class recorded_matmuls:
     """While open, keeps a host copy of the operands of kernel 2's first
     call at each distinct shape (all that its launch plan depends on) in
-    ``calls``, so that the path's device memory stays its own; every call
-    runs the kernel as before."""
+    ``calls``, and of its batched entry's in ``bank_calls``, so that the
+    path's device memory stays its own; every call runs the kernel as
+    before."""
+
+    ENTRIES = ("bitserial_matmul_fused", "bitserial_matmul_fused_batched")
 
     def __enter__(self):
         from repro_torch.kernels import bitserial_matmul as km
 
-        self.module, self.kernel = km, km.bitserial_matmul_fused
-        self.calls = {}
+        self.module = km
+        self.kernels = {name: getattr(km, name) for name in self.ENTRIES}
+        self.calls, self.bank_calls = {}, {}
 
-        def spy(qa, pw, a_bits, w_bits):
-            key = (tuple(qa.shape), tuple(pw.shape), a_bits)
-            if key not in self.calls:
-                self.calls[key] = (qa.to("cpu", copy=True),
-                                   pw.to("cpu", copy=True), a_bits)
-            return self.kernel(qa, pw, a_bits, w_bits)
+        def spy(name, calls):
+            def fn(qa, pw, a_bits, w_bits):
+                key = (tuple(qa.shape), tuple(pw.shape), a_bits)
+                if key not in calls:
+                    calls[key] = (qa.to("cpu", copy=True),
+                                  pw.to("cpu", copy=True), a_bits)
+                return self.kernels[name](qa, pw, a_bits, w_bits)
+            return fn
 
-        km.bitserial_matmul_fused = spy
+        for name, calls in zip(self.ENTRIES, (self.calls, self.bank_calls)):
+            setattr(km, name, spy(name, calls))
         return self
 
     def __exit__(self, *exc):
-        self.module.bitserial_matmul_fused = self.kernel
+        for name, fn in self.kernels.items():
+            setattr(self.module, name, fn)
 
 
 class prepack_packs:
@@ -1016,20 +1183,48 @@ def served_lm_matmuls(proj, head, lens) -> list:
                   | {(m, *head) for m in (1, LM_MAX_BATCH)})
 
 
-def check_served_matmuls(np, kc, arch, calls):
+def served_bank_matmuls(cfg, lens) -> list:
+    """(E, M, K, N) of each distinct batched kernel-2 call of an MoE LM
+    (``cfg``) served prompts of ``lens`` tokens on ``LM_MAX_BATCH`` slots at
+    <8:8>: each expert bank (w_in and w_gate d_model x d_ff, w_out d_ff x
+    d_model) at the capacity (``moe._capacity``) of every power-of-two
+    prefill chunk and of a decode step (``LM_MAX_BATCH`` tokens)."""
+    from repro_torch.models.lm.moe import _capacity
+    from repro_torch.serving.engine import _pow2_chunks
+
+    ts = {c for n in lens for c in _pow2_chunks(n)} | {LM_MAX_BATCH}
+    e, d, f = cfg.moe.n_experts, cfg.d_model, cfg.d_ff
+    return sorted({(e, _capacity(t, cfg), k, n) for t in ts
+                   for k, n in ((d, f), (f, d))})
+
+
+def check_served_matmuls(np, kc, arch, rec):
     """The kernel-2 calls the warm run of ``arch``'s <8:8> path recorded
-    are ``served_lm_matmuls`` of its eight prompts, and each equals the
-    plain version."""
+    (``recorded_matmuls`` ``rec``) are ``served_lm_matmuls`` of its eight
+    prompts, and, for an MoE arch, its batched calls
+    ``served_bank_matmuls``; each equals the plain version."""
+    from repro_torch.configs import get_config
+
     head = LM_HEADS[arch]
-    want = served_lm_matmuls(LM_PROJ_SHAPES[arch], head,
-                             [len(p) for p in lm_prompts(np, head[1])])
+    lens = [len(p) for p in lm_prompts(np, head[1])]
+    want = served_lm_matmuls(LM_PROJ_SHAPES[arch], head, lens)
     got = sorted((qa.shape[0], qa.shape[1], pw.shape[1])
-                 for qa, pw, _ in calls.values())
+                 for qa, pw, _ in rec.calls.values())
     if got != want:
         raise AssertionError(f"{arch}: kernel 2 ran at (M, K, N) {got}, "
                              f"served_lm_matmuls gives {want}")
-    for qa, pw, a_bits in calls.values():
+    cfg = get_config(arch).model
+    want = served_bank_matmuls(cfg, lens) if cfg.moe else []
+    got = sorted((*qa.shape, pw.shape[2]) for qa, pw, _ in
+                 rec.bank_calls.values())
+    if got != want:
+        raise AssertionError(f"{arch}: kernel 2's batched entry ran at (E, "
+                             f"M, K, N) {got}, served_bank_matmuls gives "
+                             f"{want}")
+    for qa, pw, a_bits in rec.calls.values():
         kc.served_matmul(arch, qa.cuda(), pw.cuda(), a_bits)
+    for qa, pw, a_bits in rec.bank_calls.values():
+        kc.served_bank(arch, qa.cuda(), pw.cuda(), a_bits)
 
 
 def serve_path(torch, np, ops, eng, model, backend, imgs, request_cls):
@@ -1124,6 +1319,9 @@ def gpu_vs_cpu(torch, np, module, model, backend, image):
 # llama3.2-3b packs its tied head through kernel 1 at every call, and an
 # untied head (rwkv6-3b, recurrentgemma-9b) is packed once, at prepack.
 LM_PATH_KERNELS = {
+    (PHI, "bf16"): (),
+    (PHI, "<8:8> cuda"): ("bitserial_matmul_fused",
+                          "bitserial_matmul_fused_batched"),
     ("rwkv6-3b", "bf16"): ("wkv_chunked",),
     ("rwkv6-3b", "<8:8> cuda"): ("wkv_chunked", "bitserial_matmul_fused"),
     ("llama3.2-3b", "bf16"): (),
@@ -1133,7 +1331,8 @@ LM_PATH_KERNELS = {
     ("recurrentgemma-9b", "<8:8> cuda"): ("bitserial_matmul_fused",),
 }
 BITSERIAL_KERNELS = ("bitplane_pack", "bitserial_matmul_fused",
-                     "bitserial_matmul_packed", "conv2d_bitserial_fused")
+                     "bitserial_matmul_packed", "conv2d_bitserial_fused",
+                     "bitserial_matmul_fused_batched")
 
 def lm_part_costs(torch, cfg, params, label, clock_hz):
     """Device ms (calls queued behind a spin) of parts of an attention
@@ -1146,9 +1345,12 @@ def lm_part_costs(torch, cfg, params, label, clock_hz):
     kernel 2, the correction); and with RG-LRU blocks, the first one's
     recurrence at a 256-token prefill chunk (gates and scan, and the scan
     alone) and at a decode step of ``LM_MAX_BATCH`` slots, and its two
-    float32 gate products at both M."""
+    float32 gate products at both M; with MoE FFNs, the first one's router
+    and dispatch, expert FFN (at <8:8> three batched kernel-2 launches and
+    their epilogues) and combine at a decode step and a 256-token chunk."""
     from repro_torch.models.lm import attention as A
     from repro_torch.models.lm import model as M
+    from repro_torch.models.lm import moe as MOE
     from repro_torch.models.lm import rglru as RG
 
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -1198,6 +1400,24 @@ def lm_part_costs(torch, cfg, params, label, clock_hz):
                                         clock_hz),
             gate_products_decode=device_ms(lambda: gate_products(x4), 20,
                                            clock_hz))
+    if cfg.moe:
+        # The caller's float tree: its first layer's banks packed here.
+        ffn = M.prepack_params(M._rep(params["scan"][0]["ffn"], 0), cfg.pim)
+        row["moe_device_ms"] = {}
+        with torch.no_grad():
+            for t in (LM_MAX_BATCH, 256):
+                x = randn(t, cfg.d_model).to(dt)
+                r = MOE.route(ffn, cfg, x)
+                disp = MOE.dispatch(ffn, cfg, x, r)
+                yb = MOE.experts(ffn, cfg, disp, dt)
+                row["moe_device_ms"][f"tokens_{t}"] = dict(
+                    capacity=r.cap,
+                    route_dispatch=device_ms(lambda: MOE.dispatch(
+                        ffn, cfg, x, MOE.route(ffn, cfg, x)), 20, clock_hz),
+                    experts=device_ms(lambda: MOE.experts(ffn, cfg, disp, dt),
+                                      20, clock_hz),
+                    combine=device_ms(lambda: MOE.combine(yb, r, t), 20,
+                                      clock_hz))
     print(json.dumps(row), flush=True)
 
 
@@ -1220,8 +1440,10 @@ def serve_lm(torch, np, ops, cfg, params, label, max_new):
     no bit-serial kernel), that prepack packed every projection through
     kernel 1 (at <8:8>), the tokens and the logits of one prefill, and
     profiles one admission plus one decode dispatch of 8 steps for the
-    device's idle share. Returns the timed run's launches and the recorded
-    kernel-2 calls."""
+    device's idle share. An MoE path at <8:8> must launch kernel 2's
+    batched entry three times a layer a decode step (one a bank stage).
+    Returns the timed run's launches and the recorded kernel-2 calls
+    (``recorded_matmuls``)."""
     from repro_torch.models.lm import model as M
     from repro_torch.serving import Request, SamplerConfig, ServeEngine
 
@@ -1257,18 +1479,22 @@ def serve_lm(torch, np, ops, cfg, params, label, max_new):
                                                 for r in eng.queue)
 
     def timed_decode(n):
+        before = ops.launch_counts()["bitserial_matmul_fused_batched"]
         t = time.perf_counter()
         out = decode_n(n)                     # ends in the host read
         ms = (time.perf_counter() - t) * 1e3
         stats["decode_s"] += ms / 1e3
         stats["dispatch_ms"].setdefault(n, []).append(ms)
+        stats["decode_steps"] += n
+        stats["decode_batched"] += ops.launch_counts()[
+            "bitserial_matmul_fused_batched"] - before
         return out
 
     eng._admit, eng._decode_n = timed_admit, timed_decode
 
     def serve(n_req):
         stats.update(prefill_s=0.0, prefill_tokens=0, decode_s=0.0,
-                     dispatch_ms={})
+                     dispatch_ms={}, decode_steps=0, decode_batched=0)
         for rid in range(n_req):
             eng.submit(Request(rid=rid, prompt=prompts[rid],
                                max_new_tokens=max_new))
@@ -1295,6 +1521,11 @@ def serve_lm(torch, np, ops, cfg, params, label, max_new):
     if stray:
         raise AssertionError(f"{arch} {label}: the float path launched "
                              f"{stray}: {launches}")
+    per_step = stats["decode_batched"] / stats["decode_steps"]
+    want_per_step = 3 * cfg.n_layers if cfg.moe and cfg.pim else 0
+    if per_step != want_per_step:
+        raise AssertionError(f"{arch} {label}: {per_step} batched kernel-2 "
+                             f"launches a decode step, want {want_per_step}")
     with torch.no_grad():
         st = M.init_state(cfg, 1, LM_MAX_LEN, "cuda")
         logits, _ = M.prefill(eng.params, cfg, torch.from_numpy(
@@ -1319,6 +1550,9 @@ def serve_lm(torch, np, ops, cfg, params, label, max_new):
         decode_dispatches={n: len(v) for n, v in stats["dispatch_ms"].items()},
         launches=launches, **packed,
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if cfg.moe:
+        row.update(batched_launches_per_decode_step=per_step,
+                   moe_drop_frac=eng.stats()["moe_drop_frac"])
     print(json.dumps(row), flush=True)
     # One admission of a 256-token prompt (one chunk) and one decode
     # dispatch of 8 steps, profiled.
@@ -1332,7 +1566,7 @@ def serve_lm(torch, np, ops, cfg, params, label, max_new):
     print(json.dumps(dict(profile_admit_256_decode_8=prof, serving=arch,
                           path=label)), flush=True)
     eng.close()
-    return launches, matmuls.calls
+    return launches, matmuls
 
 
 def lm_gpu_vs_cpu(torch, np, ops, arch, kv_quant=False, n_layers=2,
@@ -1467,7 +1701,9 @@ def lm_pim_gpu_vs_cpu(torch, np, ops, arch, block_pattern=None,
     2. every quantized product of the card's run (each projection and the
        head, each prefill chunk and decode step) recomputed on the CPU from
        the same input: the same activation codes and the same integer P, so
-       the output agrees within 1e-5 of its largest;
+       the output agrees within 1e-5 of its largest; and every expert-bank
+       product (kernel 2's batched entry) recomputed on the CPU from the
+       same codes: the same P, bit for bit;
     3. the logits against the CPU's own run: each row within 0.1 in
        relative L2, where a wiring fault gives O(1); the error is printed.
     The CPU runs ``int-direct``, whose P equals Eq. 1's bit for bit
@@ -1476,7 +1712,7 @@ def lm_pim_gpu_vs_cpu(torch, np, ops, arch, block_pattern=None,
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.core import PIMQuantConfig, pim_layers
+    from repro_torch.core import PIMQuantConfig, bitserial, pim_layers
     from repro_torch.core.packed import PackedWeight
     from repro_torch.models.lm import model as M
     from repro_torch.serving.engine import _pow2_chunks
@@ -1495,11 +1731,17 @@ def lm_pim_gpu_vs_cpu(torch, np, ops, arch, block_pattern=None,
     prompts = [rng.integers(0, model.vocab, n).astype(np.int64)
                for n in (48, 20)]
     real, calls, logits, packed = pim_layers.quantized_matmul, [], {}, {}
+    real_bank, bank_calls = bitserial.int_matmul_prepacked_bank, []
 
     def spy(a, w, **kw):
         y = real(a, w, **kw)
         calls.append((a.cpu(), w, kw, y.cpu()))
         return y
+
+    def bank_spy(qa, w, a_bits, backend):
+        p = real_bank(qa, w, a_bits, backend)
+        bank_calls.append((qa.cpu(), w, a_bits, p.cpu()))
+        return p
 
     for device, backend in (("cpu", "int-direct"), ("cuda", "cuda")):
         cfg = dataclasses.replace(model, pim=PIMQuantConfig(
@@ -1517,6 +1759,7 @@ def lm_pim_gpu_vs_cpu(torch, np, ops, arch, block_pattern=None,
             out = []
             if device == "cuda":
                 pim_layers.quantized_matmul = spy
+                bitserial.int_matmul_prepacked_bank = bank_spy
             try:
                 for slot, prompt in enumerate(prompts):
                     pos = 0
@@ -1538,6 +1781,7 @@ def lm_pim_gpu_vs_cpu(torch, np, ops, arch, block_pattern=None,
                         toks.append(out[-1].argmax(-1))
             finally:
                 pim_layers.quantized_matmul = real
+                bitserial.int_matmul_prepacked_bank = real_bank
         logits[device] = out
         launches = ops.launch_counts()
         del st
@@ -1569,6 +1813,13 @@ def lm_pim_gpu_vs_cpu(torch, np, ops, arch, block_pattern=None,
             raise AssertionError(f"<8:8> product on the card vs the CPU: "
                                  f"{tuple(a.shape)} x {w.shape}, max |dy| "
                                  f"{err} of max |y|")
+    for qa, w, a_bits, p in bank_calls:
+        if id(w) not in on_cpu:
+            on_cpu[id(w)] = w.to("cpu")
+        want = real_bank(qa, on_cpu[id(w)], a_bits, "int-direct")
+        if not torch.equal(p, want):
+            raise AssertionError(f"<8:8> bank product on the card vs the "
+                                 f"CPU: {tuple(qa.shape)} x {w.shape}")
     rel_l2 = [float(np.max(np.linalg.norm(g - c, axis=-1)
                            / np.linalg.norm(c, axis=-1)))
               for g, c in zip(logits["cuda"], logits["cpu"])]
@@ -1578,6 +1829,7 @@ def lm_pim_gpu_vs_cpu(torch, np, ops, arch, block_pattern=None,
     missing = [k for k in LM_PATH_KERNELS[(arch, "<8:8> cuda")]
                if not launches[k]]
     if max(rel_l2) > 0.1 or len(calls) != launches["bitserial_matmul_fused"] \
+            or len(bank_calls) != launches["bitserial_matmul_fused_batched"] \
             or missing:
         raise AssertionError(
             f"{arch} <8:8> GPU vs CPU: logits relative L2 {rel_l2}, "
@@ -1587,6 +1839,7 @@ def lm_pim_gpu_vs_cpu(torch, np, ops, arch, block_pattern=None,
                           prompts=[len(x) for x in prompts], decode_steps=2,
                           max_batch=LM_MAX_BATCH, packed_leaves=len(leaves),
                           products=len(calls), product_max_rel_err=call_err,
+                          bank_products_equal=len(bank_calls),
                           logits_rel_l2=rel_l2, max_abs_diff=err,
                           max_abs_cpu=scale, launches=launches)), flush=True)
 
@@ -1703,6 +1956,11 @@ def main(argv) -> int:
         for m, k, n, wb, ab, timing in PACKED_ROWS:
             kc.packed(m, k, n, wb, ab, timing=timing)
         kc.wrap(*WRAP_ROW)
+        # Kernel 2's batched entry: the expert banks, ragged rows, the wrap.
+        for e, m, k, n, wb, ab, timing in BATCHED_ROWS:
+            kc.batched(e, m, k, n, wb, ab, timing=timing)
+        kc.batched_wrap(*BATCHED_WRAP_ROW)
+        torch.cuda.empty_cache()
 
     imgs = np.random.default_rng(0).standard_normal(
         (12, 224, 224, 3)).astype(np.float32)
@@ -1764,7 +2022,8 @@ def main(argv) -> int:
     from repro_torch.core import PIMQuantConfig
     from repro_torch.models.lm import model as lm
 
-    arch = get_config("rwkv6-3b").model
+    arch = dataclasses.replace(get_config("rwkv6-3b").model,
+                               n_layers=RWKV_LAYERS)
     with phase("serve rwkv6-3b bf16"), no_plain_pack():
         params = lm.cast_params(
             lm.init(arch, torch.Generator(device="cuda").manual_seed(0),
@@ -1787,7 +2046,8 @@ def main(argv) -> int:
     del calls
 
     # -- 7b. serving llama3.2-3b (dense GQA, tied embeddings) ------------------
-    arch = get_config("llama3.2-3b").model
+    arch = dataclasses.replace(get_config("llama3.2-3b").model,
+                               n_layers=LLAMA_LAYERS)
     with phase("serve llama3.2-3b bf16"), no_plain_pack():
         params = lm.cast_params(
             lm.init(arch, torch.Generator(device="cuda").manual_seed(0),
@@ -1834,6 +2094,30 @@ def main(argv) -> int:
         check_served_matmuls(np, kc, "recurrentgemma-9b", calls)
     del calls
 
+    # -- 7d. serving phi3.5-moe (16 experts, top-2) at 8 of its 32 layers ------
+    arch = dataclasses.replace(get_config(PHI).model, n_layers=PHI_LAYERS)
+    with phase("serve phi3.5-moe bf16"), no_plain_pack():
+        params = lm.init(arch, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+        cast_in_place(torch, params, torch.bfloat16)
+        serve_lm(torch, np, ops, arch, params, "bf16", max_new=32)
+        lm_part_costs(torch, arch, params, "bf16", kc.clock_hz)
+        del params
+        torch.cuda.empty_cache()
+    with phase("serve phi3.5-moe <8:8> cuda"), no_plain_pack():
+        cfg = dataclasses.replace(arch, dtype="float32",
+                                  pim=PIMQuantConfig(8, 8, backend="cuda"))
+        params = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+        moe_launches, calls = serve_lm(torch, np, ops, cfg, params,
+                                       "<8:8> cuda", max_new=16)
+        lm_part_costs(torch, cfg, params, "<8:8> cuda", kc.clock_hz)
+        del params
+        torch.cuda.empty_cache()
+    with phase("kernel 2 at phi3.5-moe's served matmuls"):
+        check_served_matmuls(np, kc, PHI, calls)
+    del calls
+
     # -- 8. the LMs against the CPU's plain versions ---------------------------
     with phase("gpu vs cpu rwkv6-3b"):
         lm_gpu_vs_cpu(torch, np, ops, "rwkv6-3b")
@@ -1852,6 +2136,9 @@ def main(argv) -> int:
             lm_pim_gpu_vs_cpu(torch, np, ops, "recurrentgemma-9b",
                               block_pattern=(kind,), shared=shared)
         del shared
+    with phase("gpu vs cpu phi3.5-moe"):
+        lm_gpu_vs_cpu(torch, np, ops, PHI, n_layers=1)
+        lm_pim_gpu_vs_cpu(torch, np, ops, PHI)
 
     kernels = [
         summary(kc.rows, "bitplane_pack", launches["bitplane_pack"],
@@ -1867,6 +2154,9 @@ def main(argv) -> int:
                 dict(N=8, H=56, C=64, O=64, k=3, stride=1, pad=1)),
         summary(kc.rows, "wkv_chunked", lm_launches["wkv_chunked"],
                 dict(BH=40, S=256, D=64, chunk=16)),
+        summary(kc.rows, "bitserial_matmul_fused_batched",
+                moe_launches["bitserial_matmul_fused_batched"],
+                dict(E=16, M=8, K=4096, N=6400)),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

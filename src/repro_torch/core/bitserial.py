@@ -25,7 +25,10 @@ wherever the reference's do.
 
 Weights may arrive as a :class:`repro_torch.core.packed.PackedWeight` — the
 deployment path where codes, planes and column sums were computed once at
-prepack time (the paper's "program subarrays once").
+prepack time (the paper's "program subarrays once"). An MoE expert bank
+(an (E, K, N) PackedWeight) is contracted by
+:func:`int_matmul_prepacked_bank`, on ``cuda`` in one launch for the whole
+bank.
 """
 from __future__ import annotations
 
@@ -147,6 +150,37 @@ def int_matmul_prepacked(qa: torch.Tensor, w: PackedWeight, a_bits: int,
     if backend == "cuda":
         return ops.bitserial_matmul(qa, a_bits=a_bits, w_bits=w_bits,
                                     pw=w.planes)
+    raise ValueError(f"unknown backend {backend!r} (ported: {BACKENDS})")
+
+
+def int_matmul_prepacked_bank(qa: torch.Tensor, w: PackedWeight, a_bits: int,
+                              backend: str = "cuda") -> torch.Tensor:
+    """P[e] = qa[e] @ w.codes[e] over an (E, K, N) expert bank: qa (E, M,
+    K) codes -> (E, M, N) int32, what the JAX package computes with
+    ``int_matmul_prepacked`` under ``vmap`` over the bank.
+
+    ``cuda`` is one launch of kernel 2's batched entry for the whole bank;
+    ``int-direct`` one float64 batched product of the codes; ``popcount``
+    packs every expert's codes in one pack, then runs kernel 4 expert by
+    expert; ``mxu-plane`` runs expert by expert.
+    """
+    e, m, k = qa.shape
+    ops = _kernels()
+    if backend == "cuda":
+        return ops.bitserial_matmul_batched(qa, a_bits=a_bits, w_bits=w.bits,
+                                            pw=w.planes)
+    if backend == "int-direct":
+        return int_matmul_direct(qa, w.codes)    # a batched product
+    if backend == "mxu-plane":
+        return torch.stack([
+            int_matmul_mxu_plane(qa[i], w.codes[i].to(torch.int32), a_bits,
+                                 w.bits) for i in range(e)])
+    if backend == "popcount":
+        pa = ops.pack_planes(qa.reshape(e * m, k), a_bits).reshape(
+            a_bits, e, m, -1)
+        return torch.stack([
+            int_matmul_popcount_packed(pa[:, i], w.planes[i], a_bits, w.bits)
+            for i in range(e)])
     raise ValueError(f"unknown backend {backend!r} (ported: {BACKENDS})")
 
 

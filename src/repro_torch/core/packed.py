@@ -6,7 +6,9 @@ counterpart here is :class:`PackedWeight`: the weight's integer codes, its
 packed bit-planes (the subarray image), the Eq. 2 quantization parameters
 and the precomputed column sums of the affine correction.
 
-``prepack`` builds it for a (K, N) matmul weight; ``prepack_conv`` for a
+``prepack`` builds it for a (K, N) matmul weight, or for an (E, K, N) MoE
+expert bank (one PackedWeight with a leading expert axis on every leaf,
+each expert calibrated on itself); ``prepack_conv`` for a
 (KH, KW, C, O) convolution weight, which additionally carries the
 channel-packed per-kernel-row planes consumed by the fused implicit-im2col
 kernel (:mod:`repro_torch.kernels.conv2d_fused`). Planes are int32 bit
@@ -44,6 +46,10 @@ class PackedWeight:
     planes    (bits, N, KW) int32   — K-packed planes of ``codes.T``
     col_sums  (N,) int32            — sum_k codes[k, n] (Sw of the algebra)
     wq        QuantParams           — scale/qmin/bits of the weight
+
+    An (E, K, N) expert bank keeps the JAX package's ``vmap``-ed layout:
+    codes (E, K, N), planes (E, bits, N, KW), col_sums (E, N) and a ``wq``
+    whose scale and qmin are (E,).
     """
 
     codes: torch.Tensor
@@ -65,10 +71,17 @@ class PackedWeight:
         they are kept as bytes)."""
         return self.codes.to(torch.int32)
 
+    @property
+    def is_bank(self) -> bool:
+        """An (E, K, N) expert bank (per-expert ``wq``)."""
+        return self.codes.dim() == 3
+
     def to_float(self) -> torch.Tensor:
         """Dequantized master weight (``dequantize`` casts the codes to
-        float32 itself)."""
-        return dequantize(self.codes, self.wq)
+        float32 itself); a bank dequantizes each expert with its own
+        ``wq``."""
+        wq = self.wq.per_expert() if self.is_bank else self.wq
+        return dequantize(self.codes, wq)
 
     def to(self, device) -> PackedWeight:
         return PackedWeight(self.codes.to(device), self.planes.to(device),
@@ -114,7 +127,10 @@ def narrow_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
 
 
 def prepack(w: torch.Tensor, w_bits: int) -> PackedWeight:
-    """Quantize + bit-slice + lane-pack a (K, N) weight once."""
+    """Quantize + bit-slice + lane-pack a (K, N) weight, or an (E, K, N)
+    expert bank, once."""
+    if w.dim() == 3:
+        return _prepack_bank(w, w_bits)
     wq = calibrate_minmax(w, w_bits)
     codes = quantize(w, wq)
     planes = pack_planes(codes.T.contiguous(), w_bits)
@@ -123,6 +139,19 @@ def prepack(w: torch.Tensor, w_bits: int) -> PackedWeight:
     col_sums = codes.sum(0, dtype=torch.int32)
     return PackedWeight(codes=narrow_codes(codes, w_bits), planes=planes,
                         col_sums=col_sums, wq=wq)
+
+
+def _prepack_bank(w: torch.Tensor, w_bits: int) -> PackedWeight:
+    """An (E, K, N) bank: each expert calibrated on itself, and the whole
+    bank's planes in one pack (the (E*N, K) rows of the codes' transpose,
+    then a permute to (E, bits, N, KW))."""
+    e, k, n = w.shape
+    wq = calibrate_minmax(w, w_bits, per_expert=True)
+    codes = quantize(w, wq.per_expert())                # (E, K, N)
+    planes = pack_planes(codes.transpose(1, 2).reshape(e * n, k), w_bits)
+    planes = planes.reshape(w_bits, e, n, -1).transpose(0, 1).contiguous()
+    return PackedWeight(codes=narrow_codes(codes, w_bits), planes=planes,
+                        col_sums=codes.sum(1, dtype=torch.int32), wq=wq)
 
 
 def prepack_conv(w: torch.Tensor, w_bits: int) -> PackedConvWeight:

@@ -35,19 +35,32 @@ class QuantParams:
     ``q = round((x - qmin) / scale)``;  ``x ~= q * scale + qmin``.
     """
 
-    scale: torch.Tensor  # 0-d float32
-    qmin: torch.Tensor   # 0-d float32 (the paper's Q_min offset)
+    scale: torch.Tensor  # 0-d float32, or (E,) for an expert bank
+    qmin: torch.Tensor   # 0-d float32 (the paper's Q_min offset), or (E,)
     bits: int = 8
 
     def to(self, device) -> QuantParams:
         return QuantParams(self.scale.to(device), self.qmin.to(device),
                            self.bits)
 
+    def per_expert(self) -> QuantParams:
+        """An expert bank's (E,) scale and qmin viewed as (E, 1, 1), to
+        broadcast against (E, rows, columns) tensors."""
+        return QuantParams(self.scale.reshape(-1, 1, 1),
+                           self.qmin.reshape(-1, 1, 1), self.bits)
 
-def calibrate_minmax(x: torch.Tensor, bits: int) -> QuantParams:
-    """Paper Eq. 2 calibration: per-tensor min/max."""
-    qmin = x.min()
-    qmax = x.max()
+
+def calibrate_minmax(x: torch.Tensor, bits: int,
+                     per_expert: bool = False) -> QuantParams:
+    """Paper Eq. 2 calibration: per-tensor min/max. With ``per_expert``,
+    ``x`` is (E, ...) and each x[e] is calibrated on itself (the JAX
+    package's ``vmap`` of the per-tensor calibration): scale and qmin
+    (E,)."""
+    if per_expert:
+        dims = tuple(range(1, x.dim()))
+        qmin, qmax = x.amin(dim=dims), x.amax(dim=dims)
+    else:
+        qmin, qmax = x.min(), x.max()
     # Guard the degenerate all-constant tensor; scale must stay positive.
     span = torch.clamp_min(qmax - qmin, torch.finfo(torch.float32).tiny)
     # A tensor divisor, not a Python number: CUDA PyTorch divides by a CPU

@@ -15,9 +15,15 @@ the codes reads as zero.
 ``bitserial_matmul_packed(pa, pw, a_bits, w_bits)`` takes activation planes
 (a_bits, M, KW) int32 bit patterns, packed beforehand.
 
+``bitserial_matmul_fused_batched(qa, pw, a_bits, w_bits)`` runs E fused
+products in one launch: codes (E, M, K) against an expert bank's planes
+(E, w_bits, N, KW) -> (E, M, N), what the JAX package's ``vmap`` of the
+fused kernel over an MoE bank computes.
+
 A CUDA tensor launches ``csrc/bitserial_matmul.cu`` (u8 codes on the int8
 tensor cores) with the launch plan of :func:`_plan`; a CPU tensor runs
-:func:`bitserial_matmul_fused_plain` or :func:`packed_matmul_plain`.
+:func:`bitserial_matmul_fused_plain`, :func:`packed_matmul_plain` or
+:func:`bitserial_matmul_fused_batched_plain`.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from . import _build
 
 launches = 0          # bitserial_matmul_fused
 packed_launches = 0   # bitserial_matmul_packed
+batched_launches = 0  # bitserial_matmul_fused_batched
 
 # Bound on the elements of one broadcast AND in the plain versions.
 _PLAIN_CHUNK = 1 << 22
@@ -42,6 +49,8 @@ _ARGTYPES = {
     + [ctypes.c_void_p],
     "repro_bitserial_matmul_packed": [ctypes.c_void_p] * 3
     + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    "repro_bitserial_matmul_fused_batched": [ctypes.c_void_p] * 3
+    + [ctypes.c_int] * 10 + [ctypes.c_void_p],
     "repro_bitserial_matmul_tile": [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
 }
 
@@ -67,18 +76,20 @@ class Plan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=4096)
-def _plan(m: int, n: int, kw: int, sms: int) -> Plan:
-    """The launch plan of an (M, N) product over KW words of K on a card of
-    ``sms`` SMs: the 16-row tile for M <= 16, else the 64-row one; K split
-    across blocks until the grid holds about two blocks per SM (where KW
+def _plan(m: int, n: int, kw: int, sms: int, e: int = 1) -> Plan:
+    """The launch plan of ``e`` (M, N) products (one, or an expert bank's)
+    over KW words of K on a card of ``sms`` SMs: the 16-row tile for M <=
+    16, else the 64-row one; K split across blocks until the grid (the
+    tiles of all ``e`` products) holds about two blocks per SM (where KW
     has the steps for it), and always into ranges of at most
-    ``SLAB_WORDS``."""
+    ``SLAB_WORDS``; the grid's z (``e`` times the splits) stays within
+    65,535."""
     variant = SMALL if m <= SMALL_M else LARGE
     bm, bn, kstep = TILES[variant]
-    tiles = max(1, -(-m // bm) * -(-n // bn))
+    tiles = max(1, e * -(-m // bm) * -(-n // bn))
     steps = -(-kw // kstep)
     splits = max(-(-2 * sms // tiles), -(-steps // (SLAB_WORDS // kstep)))
-    per = max(1, -(-steps // max(1, min(splits, steps, 65535))))
+    per = max(1, -(-steps // max(1, min(splits, steps, 65535 // e))))
     return Plan(variant, per * kstep, max(1, -(-steps // per)))
 
 
@@ -114,6 +125,15 @@ def bitserial_matmul_fused_plain(qa: torch.Tensor, pw: torch.Tensor,
                                pw[:w_bits])
 
 
+def bitserial_matmul_fused_batched_plain(qa: torch.Tensor, pw: torch.Tensor,
+                                         a_bits: int,
+                                         w_bits: int) -> torch.Tensor:
+    """Plain PyTorch version of the batched entry: the plain fused version
+    on each expert's codes and planes."""
+    return torch.stack([bitserial_matmul_fused_plain(q, p, a_bits, w_bits)
+                        for q, p in zip(qa, pw)])
+
+
 def bitserial_matmul_fused(qa: torch.Tensor, pw: torch.Tensor, a_bits: int,
                            w_bits: int) -> torch.Tensor:
     if qa.dim() != 2 or qa.dtype != torch.int32:
@@ -142,6 +162,43 @@ def bitserial_matmul_fused(qa: torch.Tensor, pw: torch.Tensor, a_bits: int,
                   a_bits, w_bits)
     global launches
     launches += 1
+    return out
+
+
+def bitserial_matmul_fused_batched(qa: torch.Tensor, pw: torch.Tensor,
+                                   a_bits: int, w_bits: int) -> torch.Tensor:
+    """E fused products in one launch: qa (E, M, K) int32 codes, pw (E,
+    w_bits, N, KW) int32 planes -> P (E, M, N) int32."""
+    if qa.dim() != 3 or qa.dtype != torch.int32:
+        raise ValueError(f"want (E, M, K) int32 codes, got {tuple(qa.shape)} "
+                         f"{qa.dtype}")
+    if (pw.dim() != 4 or pw.dtype != torch.int32 or pw.shape[1] != w_bits
+            or pw.shape[0] != qa.shape[0]):
+        raise ValueError(f"want ({qa.shape[0]}, {w_bits}, N, KW) int32 "
+                         f"planes, got {tuple(pw.shape)} {pw.dtype}")
+    if not (1 <= a_bits <= 8 and 1 <= w_bits <= 8):
+        raise ValueError(f"<{w_bits}:{a_bits}>: the kernel takes 1..8 bits")
+    e, m, k = qa.shape
+    _, _, n, kw = pw.shape
+    if k > kw * 32:
+        raise ValueError(f"activation K={k} exceeds packed weight K={kw * 32}")
+    if qa.device != pw.device:
+        raise ValueError(f"operands on {qa.device} and {pw.device}")
+    if qa.device.type == "cpu":
+        return bitserial_matmul_fused_batched_plain(qa, pw, a_bits, w_bits)
+    if qa.device.type != "cuda":
+        raise ValueError(f"no bitserial_matmul for device {qa.device}")
+    # Each index inside the kernel, and each product's offset, in range.
+    if (e * m * max(n, k) >= 2**31 or e * w_bits * n * kw >= 2**31
+            or kw * 32 >= 2**31 or e > 65535):
+        raise ValueError(f"({e}, {m}, {n}, {kw}) exceeds the kernel's int "
+                         "indices")
+    if e == 0 or m == 0 or n == 0:
+        return torch.empty((e, m, n), dtype=torch.int32, device=qa.device)
+    out = _launch("fused_batched", qa.contiguous(), pw.contiguous(), m, n,
+                  (k,), kw, a_bits, w_bits, e=e)
+    global batched_launches
+    batched_launches += 1
     return out
 
 
@@ -190,18 +247,20 @@ def _entries() -> dict:
                                f"{tuple(got)}, _plan's "
                                f"{(*tile, SLAB_WORDS)}")
     return {e: getattr(lib, f"repro_bitserial_matmul_{e}")
-            for e in ("fused", "packed")}
+            for e in ("fused", "packed", "fused_batched")}
 
 
-def _launch(entry, a, pw, m, n, k, kw, a_bits, w_bits) -> torch.Tensor:
+def _launch(entry, a, pw, m, n, k, kw, a_bits, w_bits, e=None) -> torch.Tensor:
     """One launch of ``repro_bitserial_matmul_<entry>`` with :func:`_plan`'s
-    plan; ``k`` is ``(K,)`` for the fused entry, ``()`` for the packed. On
+    plan; ``k`` is ``(K,)`` for the fused entries, ``()`` for the packed;
+    ``e`` is the batched entry's product count (its output (E, M, N)). On
     the split path the C entry zeroes ``out`` on the stream first."""
-    plan = _plan(m, n, kw, _sm_count(a.device))
-    out = torch.empty((m, n), dtype=torch.int32, device=a.device)
+    plan = _plan(m, n, kw, _sm_count(a.device), 1 if e is None else e)
+    lead = () if e is None else (e,)
+    out = torch.empty((*lead, m, n), dtype=torch.int32, device=a.device)
     fn = _entries()[entry]
-    args = (a.data_ptr(), pw.data_ptr(), out.data_ptr(), m, n, *k, kw,
-            a_bits, w_bits, *plan)
+    args = (a.data_ptr(), pw.data_ptr(), out.data_ptr(), *lead, m, n, *k,
+            kw, a_bits, w_bits, *plan)
     if a.device.index == torch.cuda.current_device():
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     else:

@@ -3,8 +3,8 @@
 //           = sum_k a[m, k] * w[n, k]   (mod 2^32, like the reference's int32)
 // where a and w are the codes (at most 8 bits) that the planes slice.
 //
-// Two entry points share one kernel template and differ only in where the
-// activation codes come from:
+// Three entry points share one kernel template and differ only in where
+// the activation codes come from and in how many products one launch runs:
 //
 //   repro_bitserial_matmul_fused   qa (M, K) int32 codes; the kernel keeps
 //     each code's low a_bits bits (the bits the Pallas kernel slices).
@@ -14,9 +14,17 @@
 //     beforehand (the popcount backend packs with bitplane_pack.cu).
 //     Replaces src/repro/kernels/bitserial_matmul.py::
 //     bitserial_matmul_packed (Pallas; body _kernel + _accumulate).
+//   repro_bitserial_matmul_fused_batched  E products in one launch: qa
+//     (E, M, K) int32 codes against pw (E, w_bits, N, KW), P (E, M, N).
+//     The counterpart of bitserial_matmul_fused under jax.vmap over an MoE
+//     expert bank (src/repro/models/lm/moe.py::_packed_expert_ffn), which
+//     is one batched pallas_call with the expert on its grid; here the
+//     expert is on blockIdx.z beside the K split, and each expert's
+//     operands and output are reached through its stride.
 //
-// Both take pw (w_bits, N, KW) 32-bit words, the prepacked subarray image,
-// and return P (M, N) int32. Both also take the launch plan that
+// All take pw (w_bits, N, KW) 32-bit words, the prepacked subarray image
+// (an expert's slice of it for the batched entry), and return P (M, N)
+// int32. All also take the launch plan that
 // kernels/bitserial_matmul.py::_plan makes: the tile, the words of K per
 // split and the number of splits. repro_bitserial_matmul_tile reports each
 // tile's geometry, which the wrapper holds against its own table at load.
@@ -58,9 +66,11 @@
 //   for the extra barrier, and let a third 16-row block in, which ran the
 //   rwkv6-3b head's 512 blocks in 1.3 waves instead of 2, 1.9x slower.
 // - Split K. Where the tiles give fewer than two blocks per SM, blocks
-//   also split K (blockIdx.z) and add their partial P to the output with
-//   uint32 atomicAdd; the entry zeroes the output first
-//   (cudaMemsetAsync on the caller's stream), on that path only. Integer
+//   also split K (blockIdx.z, beside the batched entry's product) and add
+//   their partial P to the output with uint32 atomicAdd; the entry zeroes
+//   the output first (cudaMemsetAsync on the caller's stream), on that
+//   path only. The batched entry's plan counts its E products' tiles when
+//   it fills the card, so a bank of 16 experts splits K less. Integer
 //   addition mod 2^32 is associative, so the result is exact and the same
 //   in every run.
 // - Exact and wrapping. A split covers at most 1,024 words (32,768 K), so
@@ -193,17 +203,20 @@ __device__ __forceinline__ void codes_to_u8(const int* c, uint32_t mask4,
 }
 
 // kFromCodes: ``a`` is (M, K) int32 codes; otherwise (a_bits, M, KW) words.
-// Block (x, y, z) computes rows x*kBM.., columns y*kBN.. over the words
-// [z * split_words, (z + 1) * split_words) of K.
+// Block (x, y, z) computes rows x*kBM.., columns y*kBN.. of product
+// z / splits (whose a, pw and out start a_stride, w_stride and out_stride
+// words past the previous product's) over the words [s * split_words,
+// (s + 1) * split_words) of K, s = z % splits.
 // The launch bound asks for two blocks an SM (128 registers a thread):
 // without one, ptxas assumes 1,024 threads a block and spills at 64.
 template <bool kFromCodes, class T>
 __global__ void __launch_bounds__(T::kThreads, 2)
-bitserial_matmul_kernel(const void* __restrict__ a,
-                        const uint32_t* __restrict__ pw,
-                        uint32_t* __restrict__ out, int m, int n, int k,
+bitserial_matmul_kernel(const void* __restrict__ a_base,
+                        const uint32_t* __restrict__ pw_base,
+                        uint32_t* __restrict__ out_base, int m, int n, int k,
                         int kw, int a_bits, int w_bits, int split_words,
-                        bool atomic, int vec_a, int vec_w) {
+                        int splits, int64_t a_stride, int64_t w_stride,
+                        int64_t out_stride, int vec_a, int vec_w) {
   using S = Smem<T, kFromCodes>;
   constexpr int kKS = T::kKS, kU8 = T::kU8Stride;
   // Conversion units (a row's or column's 32-K group) per thread.
@@ -214,7 +227,13 @@ bitserial_matmul_kernel(const void* __restrict__ a,
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp / T::kWN, wn = warp % T::kWN;
   const int row0 = blockIdx.x * T::kBM, col0 = blockIdx.y * T::kBN;
-  const int kw_lo = blockIdx.z * split_words;
+  const int product = blockIdx.z / splits;
+  const bool atomic = splits > 1;
+  const void* const a =
+      static_cast<const uint32_t*>(a_base) + product * a_stride;
+  const uint32_t* const pw = pw_base + product * w_stride;
+  uint32_t* const out = out_base + product * out_stride;
+  const int kw_lo = (blockIdx.z % splits) * split_words;
   const int kw_hi = min(kw, kw_lo + split_words);
   const int steps = (kw_hi - kw_lo + kKS - 1) / kKS;
   const uint32_t mask4 = ((1u << a_bits) - 1) * kByteLsb;
@@ -361,8 +380,8 @@ bitserial_matmul_kernel(const void* __restrict__ a,
 }
 
 template <bool kFromCodes, class T>
-int launch(const void* a, const void* pw, void* out, int m, int n, int k,
-           int kw, int a_bits, int w_bits, int split_words, int splits,
+int launch(const void* a, const void* pw, void* out, int e, int m, int n,
+           int k, int kw, int a_bits, int w_bits, int split_words, int splits,
            void* stream) {
   using S = Smem<T, kFromCodes>;
   const auto kernel = bitserial_matmul_kernel<kFromCodes, T>;
@@ -376,11 +395,12 @@ int launch(const void* a, const void* pw, void* out, int m, int n, int k,
     if (err != cudaSuccess) return int(err);
     if (dev < kMaxDevices) configured[dev] = true;
   }
+  if (int64_t(e) * splits > 65535) return int(cudaErrorInvalidValue);
   const dim3 grid((m + T::kBM - 1) / T::kBM, (n + T::kBN - 1) / T::kBN,
-                  splits);
-  if (grid.y > 65535 || grid.z > 65535) return int(cudaErrorInvalidValue);
+                  e * splits);
+  if (grid.y > 65535) return int(cudaErrorInvalidValue);
   if (splits > 1) {  // the splits add into P
-    err = cudaMemsetAsync(out, 0, sizeof(uint32_t) * size_t(m) * n,
+    err = cudaMemsetAsync(out, 0, sizeof(uint32_t) * size_t(e) * m * n,
                           static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return int(err);
   }
@@ -388,29 +408,36 @@ int launch(const void* a, const void* pw, void* out, int m, int n, int k,
   const int va =
       kFromCodes ? copy_shift(a, k, 4) : copy_shift(a, kw, kPlaneVec);
   const int vw = copy_shift(pw, kw, kPlaneVec);
+  // Each product's operands: (M, K) codes or (a_bits, M, KW) words, then
+  // (w_bits, N, KW) words; its output (M, N). A row's alignment carries
+  // over to every product, whose start is a whole number of rows on.
+  const int64_t a_stride =
+      kFromCodes ? int64_t(m) * k : int64_t(a_bits) * m * kw;
   kernel<<<grid, T::kThreads, S::kBytes, static_cast<cudaStream_t>(stream)>>>(
       a, static_cast<const uint32_t*>(pw), static_cast<uint32_t*>(out), m, n,
-      k, kw, a_bits, w_bits, split_words, splits > 1, va, vw);
+      k, kw, a_bits, w_bits, split_words, splits, a_stride,
+      int64_t(w_bits) * n * kw, int64_t(m) * n, va, vw);
   return int(cudaGetLastError());
 }
 
 // variant 0 is the 16-row tile, 1 the 64-row tile. Rejects a plan whose
 // splits do not tile [0, kw) or whose split could overflow the s32 sum.
 template <bool kFromCodes>
-int run(const void* a, const void* pw, void* out, int m, int n, int k,
+int run(const void* a, const void* pw, void* out, int e, int m, int n, int k,
         int kw, int a_bits, int w_bits, int variant, int split_words,
         int splits, void* stream) {
   const int ks = variant == 0 ? SmallM::kKS : LargeM::kKS;
   const bool tiles = kw > 0 ? int64_t(splits - 1) * split_words < kw &&
                                   int64_t(splits) * split_words >= kw
                             : splits == 1;
-  if ((variant != 0 && variant != 1) || splits < 1 || split_words < ks ||
-      split_words % ks || split_words > kSlabWords || !tiles)
+  if ((variant != 0 && variant != 1) || e < 1 || splits < 1 ||
+      split_words < ks || split_words % ks || split_words > kSlabWords ||
+      !tiles)
     return int(cudaErrorInvalidValue);
   return variant == 0
-             ? launch<kFromCodes, SmallM>(a, pw, out, m, n, k, kw, a_bits,
+             ? launch<kFromCodes, SmallM>(a, pw, out, e, m, n, k, kw, a_bits,
                                           w_bits, split_words, splits, stream)
-             : launch<kFromCodes, LargeM>(a, pw, out, m, n, k, kw, a_bits,
+             : launch<kFromCodes, LargeM>(a, pw, out, e, m, n, k, kw, a_bits,
                                           w_bits, split_words, splits, stream);
 }
 
@@ -432,7 +459,7 @@ REPRO_EXPORT int repro_bitserial_matmul_fused(const void* qa, const void* pw,
                                               int kw, int a_bits, int w_bits,
                                               int variant, int split_words,
                                               int splits, void* stream) {
-  return run<true>(qa, pw, out, m, n, k, kw, a_bits, w_bits, variant,
+  return run<true>(qa, pw, out, 1, m, n, k, kw, a_bits, w_bits, variant,
                    split_words, splits, stream);
 }
 
@@ -441,6 +468,16 @@ REPRO_EXPORT int repro_bitserial_matmul_packed(const void* pa, const void* pw,
                                                int a_bits, int w_bits,
                                                int variant, int split_words,
                                                int splits, void* stream) {
-  return run<false>(pa, pw, out, m, n, kw * 32, kw, a_bits, w_bits, variant,
-                    split_words, splits, stream);
+  return run<false>(pa, pw, out, 1, m, n, kw * 32, kw, a_bits, w_bits,
+                    variant, split_words, splits, stream);
+}
+
+// E products: qa (E, M, K) int32 codes, pw (E, w_bits, N, KW) words and out
+// (E, M, N), each contiguous; one plan for all of them.
+REPRO_EXPORT int repro_bitserial_matmul_fused_batched(
+    const void* qa, const void* pw, void* out, int e, int m, int n, int k,
+    int kw, int a_bits, int w_bits, int variant, int split_words, int splits,
+    void* stream) {
+  return run<true>(qa, pw, out, e, m, n, k, kw, a_bits, w_bits, variant,
+                   split_words, splits, stream);
 }

@@ -7,6 +7,7 @@ version in the same module. Nothing falls back from one to the other.
 ``bitserial_matmul`` is one launch: the weight planes arrive prepacked
 (``pw=``, from :class:`repro_torch.core.packed.PackedWeight`), and the
 activation codes are sliced and packed inside the matmul kernel.
+``bitserial_matmul_batched`` is one launch for a whole MoE expert bank.
 ``bitserial_matmul_packed`` takes activation planes packed beforehand
 (``pack_planes``), the ``popcount`` backend's two launches.
 ``conv2d_bitserial`` is two: the channel pack of the padded activation
@@ -31,6 +32,7 @@ _KERNEL_MODULES = {
     "bitplane_pack": (_pack, "launches"),
     "bitserial_matmul_fused": (_bsm, "launches"),
     "bitserial_matmul_packed": (_bsm, "packed_launches"),
+    "bitserial_matmul_fused_batched": (_bsm, "batched_launches"),
     "conv2d_bitserial_fused": (_conv, "launches"),
     "wkv_chunked": (_wkv, "launches"),
 }
@@ -60,6 +62,16 @@ def bitserial_matmul(qa: torch.Tensor, *, a_bits: int, w_bits: int,
     prepacked weight planes (``PackedWeight.planes``).
     """
     return _bsm.bitserial_matmul_fused(qa, pw, a_bits, w_bits)
+
+
+def bitserial_matmul_batched(qa: torch.Tensor, *, a_bits: int, w_bits: int,
+                             pw: torch.Tensor) -> torch.Tensor:
+    """Eq. 1 over an expert bank in one launch -> (E, M, N) int32.
+
+    ``qa`` (E, M, K) activation codes; ``pw`` (E, w_bits, N, ceil(K/32))
+    the bank's prepacked planes (a bank ``PackedWeight.planes``).
+    """
+    return _bsm.bitserial_matmul_fused_batched(qa, pw, a_bits, w_bits)
 
 
 def bitserial_matmul_packed(pa: torch.Tensor, pw: torch.Tensor, *,

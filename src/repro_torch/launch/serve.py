@@ -5,10 +5,12 @@
       [--precision '<8:8>' --backend cuda] [--reduced --device cpu]
 
 serves an LM architecture (the dense ``llama3.2-3b``, ``qwen3-0.6b``,
-``qwen1.5-4b``, ``granite-3-2b``, ``rwkv6-3b``, or the RG-LRU and
-local-attention hybrid ``recurrentgemma-9b``; random weights from a
-seed, the arch's dtype; with ``--precision '<W:I>'`` every projection runs
-the paper's bit-serial pipeline in float32) through the
+``qwen1.5-4b``, ``granite-3-2b``, ``rwkv6-3b``, the RG-LRU and
+local-attention hybrid ``recurrentgemma-9b``, or the MoE
+``phi3.5-moe-42b-a6.6b`` and ``grok-1-314b``, which do not fit one card at
+their published sizes: serve them ``--reduced``; random weights from a
+seed, the arch's dtype; with ``--precision '<W:I>'`` every projection and
+expert bank runs the paper's bit-serial pipeline in float32) through the
 continuous-batching ``ServeEngine``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --workload cnn \

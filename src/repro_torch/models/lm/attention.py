@@ -174,7 +174,7 @@ def attention(p, cfg: ModelConfig, x: torch.Tensor, q_pos: torch.Tensor,
     if kv_src is not None:
         raise NotImplementedError(
             "cross-attention is not ported yet (ROADMAP.md Queue 1, item 2: "
-            "MoE, then the stub frontends and cross-attention)")
+            "the stub frontends and cross-attention)")
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     b, sq, _ = x.shape
     pim = cfg.pim

@@ -145,8 +145,8 @@ def init_layer_state(kind: str, cfg: ModelConfig, batch: int, max_len: int,
     if kind == "cross_attn":
         raise NotImplementedError(
             "decode state of block kind 'cross_attn' is not ported yet "
-            "(ROADMAP.md Queue 1, item 2: MoE, then the stub frontends "
-            "and cross-attention)")
+            "(ROADMAP.md Queue 1, item 2: the stub frontends and "
+            "cross-attention)")
     raise ValueError(kind)
 
 

@@ -7,9 +7,11 @@ reps takes the place of ``jax.lax.scan``.
 
 Entry points:
 
-  ``forward(params, cfg, tokens)``             -> (logits, aux)
+  ``forward(params, cfg, tokens)``             -> (logits, aux loss)
   ``prefill(params, cfg, tokens, state)``      -> (last logits, state)
   ``decode_step(params, cfg, tokens, state)``  -> (logits, state)
+                                                  (+ stats with
+                                                  ``return_stats``)
   ``prefill_into_slot(params, cfg, tokens, state, slot, start_pos)``
 
 State updates are in place: ``prefill`` and ``decode_step`` write each
@@ -18,8 +20,9 @@ return the same dict), and an ``attn`` or ``local_attn`` layer writes only
 its new KV rows (into the ring buffer for ``local_attn``), so a decode
 step allocates no second copy of the (max_batch, ...) state. The ``attn``
 (dense decoder), ``local_attn`` and ``rglru`` (the recurrentgemma hybrid)
-and ``rwkv`` block kinds are ported; ``cross_attn`` and MoE FFNs raise
-``NotImplementedError``.
+and ``rwkv`` block kinds are ported, each ``attn``, ``local_attn`` or
+``rglru`` block with a dense or an MoE FFN (``cfg.moe``: grok-1,
+phi3.5-moe); ``cross_attn`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from repro_torch.core.pim_layers import pim_linear
 from . import attention as A
 from . import cache as C
 from . import mlp as MLP
+from . import moe as MOE
 from . import rglru as RG
 from . import rwkv6 as RW
 from .config import ModelConfig
@@ -74,20 +78,18 @@ _FFN_KINDS = _ATTN_KINDS + ("rglru",)
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue 1, item 2: MoE, then "
-        "the stub frontends and cross-attention); the port runs 'attn', "
-        "'local_attn', 'rglru' and 'rwkv'")
+        f"{what} is not ported yet (ROADMAP.md Queue 1, item 2: the stub "
+        "frontends and cross-attention); the port runs 'attn', "
+        "'local_attn', 'rglru' (with a dense or an MoE FFN) and 'rwkv'")
 
 
-def _check_ported(kind: str, cfg: ModelConfig):
+def _check_ported(kind: str):
     if kind not in _FFN_KINDS + ("rwkv",):
         raise _not_ported(f"block kind {kind!r}")
-    if kind in _FFN_KINDS and cfg.moe:
-        raise _not_ported("the MoE FFN")
 
 
 def init_block(kind: str, cfg: ModelConfig, generator, device=None):
-    _check_ported(kind, cfg)
+    _check_ported(kind)
     d = cfg.d_model
     p = {"norm1": init_norm(cfg.norm, d, device)}
     if kind in _ATTN_KINDS:
@@ -98,7 +100,8 @@ def init_block(kind: str, cfg: ModelConfig, generator, device=None):
         p["rglru"] = RG.init_rglru_block(cfg, generator, device)
     if kind in _FFN_KINDS:
         p["norm2"] = init_norm(cfg.norm, d, device)
-        p["ffn"] = MLP.init_mlp(cfg, generator, device)
+        p["ffn"] = (MOE.init_moe(cfg, generator, device) if cfg.moe
+                    else MLP.init_mlp(cfg, generator, device))
         return p
     p["time_mix"] = RW.init_rwkv_block(cfg, generator, device)
     p["norm2"] = init_norm(cfg.norm, d, device)
@@ -106,15 +109,25 @@ def init_block(kind: str, cfg: ModelConfig, generator, device=None):
     return p
 
 
+def _zero_aux(device) -> dict:
+    """The MoE aux accumulator (the JAX package's ``_zero_aux``): the
+    balance + z loss, and the dropped-assignment fraction summed over the
+    MoE layers with a layer count, so the engine can report a mean."""
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return {"loss": z, "drop": z, "layers": z}
+
+
 def apply_block(kind: str, p, cfg: ModelConfig, x, q_pos=None, state=None,
-                cache_index=None):
+                cache_index=None, aux=None):
     """Pre-norm residual block. Returns (x, new_state).
 
     ``q_pos`` (B, S) int32 and ``cache_index`` (B,) are the positions an
     attention block needs (the recurrent blocks ignore them); a ``local_attn``
     block attends within ``cfg.local_window`` and keeps its ring buffer in
-    ``state``. A cache comes back as ``state`` itself, written in place."""
-    _check_ported(kind, cfg)
+    ``state``. A cache comes back as ``state`` itself, written in place.
+    An MoE FFN adds its aux values (``_zero_aux``'s keys) into the ``aux``
+    dict where one is given."""
+    _check_ported(kind)
     h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
     if kind in _FFN_KINDS:
         if kind == "rglru":
@@ -130,7 +143,13 @@ def apply_block(kind: str, p, cfg: ModelConfig, x, q_pos=None, state=None,
                 y = apply_norm(cfg.norm, p["norm_post"], y, cfg.norm_eps)
         x = x + y
         h2 = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
-        return x + MLP.mlp(p["ffn"], cfg, h2), new_inner
+        if not cfg.moe:
+            return x + MLP.mlp(p["ffn"], cfg, h2), new_inner
+        y2, a = MOE.moe_ffn(p["ffn"], cfg, h2)
+        if aux is not None:
+            for k, v in a.items():
+                aux[k] = aux[k] + v
+        return x + y2, new_inner
     y, new_inner = RW.rwkv_time_mix(p["time_mix"], cfg, h, state)
     x = x + y
     h2 = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
@@ -169,9 +188,14 @@ def init(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> dict:
 
 
 def _stack(trees):
+    """The reps' trees stacked leaf by leaf; each rep's leaf is dropped from
+    its tree once stacked, so at most one leaf is held twice (a layer of
+    phi3.5-moe holds 5.2 GB of float32 experts)."""
     if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+        return {k: _stack([t.pop(k) for t in trees]) for k in list(trees[0])}
+    out = torch.stack(trees)
+    trees.clear()
+    return out
 
 
 def _map(fn, tree):
@@ -211,6 +235,10 @@ _PIM_PROJ_KEYS = frozenset({
     "head",                                      # untied lm head
 })
 
+# Expert-bank leaves inside a router-bearing dict: (E, d, f), or (R, E, d,
+# f) scan-stacked, packed as banks (the router stays float).
+_MOE_EXPERT_KEYS = frozenset({"w_in", "w_out", "w_gate"})
+
 
 def prepack_params(params, cfg):
     """Quantize + pack every pim_linear projection weight exactly once.
@@ -219,22 +247,35 @@ def prepack_params(params, cfg):
     comes back as it is). A (K, N) leaf becomes a :class:`PackedWeight`; a
     stacked (R, K, N) leaf a list of R of them, one per rep, each
     calibrated on its own rep as the JAX package's ``vmap`` calibrates.
+    MoE expert banks pack one level deeper: ``w_in``/``w_out``/``w_gate``
+    of a router-bearing dict are (E, d, f) (or (R, E, d, f) scan-stacked)
+    and each becomes one bank PackedWeight (or a list of R), every expert
+    calibrated on itself; the ``router`` stays float, so the packed path
+    routes exactly as the float one.
     Single device only: no mesh and no fault injection here.
     """
     if cfg is None or not getattr(cfg, "enabled", False):
         return params
 
-    def pack_leaf(leaf):
+    def pack_leaf(leaf, ndim):
+        """A leaf of ``ndim`` dimensions per weight (2, or 3 for a bank),
+        with a leading rep axis or without."""
         leaf = leaf.to(torch.float32)
-        if leaf.dim() == 2:
+        if leaf.dim() == ndim:
             return prepack(leaf, cfg.w_bits)
         return [prepack(w, cfg.w_bits) for w in leaf]
 
+    def packs(k, v, keys, ndim):
+        return (k in keys and isinstance(v, torch.Tensor)
+                and v.dim() in (ndim, ndim + 1) and v.is_floating_point())
+
     def walk(p):
         if isinstance(p, dict):
-            return {k: (pack_leaf(v)
-                        if (k in _PIM_PROJ_KEYS and isinstance(v, torch.Tensor)
-                            and v.dim() in (2, 3) and v.is_floating_point())
+            if "router" in p:            # MoE: pack experts, router stays
+                return {k: (pack_leaf(v, 3)
+                            if packs(k, v, _MOE_EXPERT_KEYS, 3) else v)
+                        for k, v in p.items()}
+            return {k: (pack_leaf(v, 2) if packs(k, v, _PIM_PROJ_KEYS, 2)
                         else walk(v))
                     for k, v in p.items()}
         if isinstance(p, (list, tuple)):
@@ -267,22 +308,24 @@ def _write(dst: dict, src: dict):
 def _run_blocks(params, cfg: ModelConfig, x, q_pos, states=None,
                 cache_index=None):
     """Apply the full block schedule; ``states`` (prefill/decode) is
-    updated in place."""
+    updated in place. Returns (x, aux): the MoE aux values summed over the
+    layers (``_zero_aux``), or None for a model without MoE."""
     unit, reps, rest = layer_plan(cfg)
+    aux = _zero_aux(x.device) if cfg.moe else None
     for r in range(reps):
         for j, kind in enumerate(unit):
             s = _rep(states["scan"][j], r) if states is not None else None
             x, ns = apply_block(kind, _rep(params["scan"][j], r), cfg, x,
-                                q_pos, s, cache_index)
+                                q_pos, s, cache_index, aux)
             if states is not None:
                 _write(s, ns)
     for i, kind in enumerate(rest):
         s = states["rest"][i] if states is not None else None
         x, ns = apply_block(kind, params["rest"][i], cfg, x, q_pos, s,
-                            cache_index)
+                            cache_index, aux)
         if states is not None:
             _write(s, ns)
-    return x
+    return x, aux
 
 
 def embed_inputs(params, cfg: ModelConfig, tokens):
@@ -300,15 +343,17 @@ def lm_head(params, cfg: ModelConfig, x):
 
 
 def forward(params, cfg: ModelConfig, tokens):
-    """Full-sequence forward. Returns (logits (B, S, V) float32, aux loss);
-    the aux loss is MoE's and 0 here."""
+    """Full-sequence forward. Returns (logits (B, S, V) float32, aux loss):
+    the MoE balance + z loss summed over the layers, 0 without MoE."""
     x = embed_inputs(params, cfg, tokens)
     b, s = x.shape[:2]
     q_pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(
         b, s)
-    x = _run_blocks(params, cfg, x, q_pos)
+    x, aux = _run_blocks(params, cfg, x, q_pos)
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
-    return lm_head(params, cfg, x), torch.zeros((), device=x.device)
+    loss = aux["loss"] if aux is not None else torch.zeros((),
+                                                           device=x.device)
+    return lm_head(params, cfg, x), loss
 
 
 def _positions(state, b: int, s: int):
@@ -320,17 +365,27 @@ def _positions(state, b: int, s: int):
     return idx, q_pos
 
 
-def decode_step(params, cfg: ModelConfig, tokens, state):
+def decode_step(params, cfg: ModelConfig, tokens, state,
+                return_stats: bool = False):
     """One decode step. tokens (B, 1) -> (logits (B, 1, V), state), the
     state updated in place. ``state["length"]`` is (B,): every slot of a
-    continuous-batching grid decodes at its own position."""
+    continuous-batching grid decodes at its own position.
+
+    ``return_stats`` appends the step's telemetry, ``{"moe_drop_frac": the
+    fraction of this step's top-k assignments dropped at capacity,
+    averaged over the MoE layers}`` (0 for a dense model), a 0-d tensor on
+    the device."""
     x = embed_inputs(params, cfg, tokens)
     idx, q_pos = _positions(state, x.shape[0], 1)
-    x = _run_blocks(params, cfg, x, q_pos, state, idx)
+    x, aux = _run_blocks(params, cfg, x, q_pos, state, idx)
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     logits = lm_head(params, cfg, x)
     state["length"] += 1
-    return logits, state
+    if not return_stats:
+        return logits, state
+    aux = aux or _zero_aux(x.device)
+    return logits, state, {"moe_drop_frac": aux["drop"]
+                           / aux["layers"].clamp_min(1.0)}
 
 
 def prefill(params, cfg: ModelConfig, tokens, state):
@@ -338,7 +393,7 @@ def prefill(params, cfg: ModelConfig, tokens, state):
     place. Returns the last token's logits (B, 1, V)."""
     x = embed_inputs(params, cfg, tokens)
     idx, q_pos = _positions(state, *x.shape[:2])
-    x = _run_blocks(params, cfg, x, q_pos, state, idx)
+    x, _ = _run_blocks(params, cfg, x, q_pos, state, idx)
     x = apply_norm(cfg.norm, params["final_norm"], x[:, -1:], cfg.norm_eps)
     logits = lm_head(params, cfg, x)
     state["length"] += tokens.shape[1]

@@ -20,7 +20,9 @@ live flag), and runs two paths:
   * **``decode_n``.** Up to ``drain_steps`` fused decode + sample steps per
     dispatch when no admissions are pending. The control block stays on
     the device; only the (n, B) sampled tokens and done flags cross to the
-    host, in one copy per dispatch, never the (B, vocab) logits. Dead slots
+    host, in one copy per dispatch, never the (B, vocab) logits (an MoE
+    engine adds one more: the (n,) per-step dropped-assignment fractions,
+    which feed the ``moe_drop_frac`` ring of ``stats()``). Dead slots
     decode into their frozen position (a KV write lands on one row, which
     the next occupant overwrites before it can attend to it; recurrent
     carries and ring rows, which are position-less, are zeroed by the next
@@ -58,6 +60,7 @@ from repro_torch.models.lm.model import (decode_step, init_state,
                                          prefill_into_slot, prepack_params,
                                          to_device)
 
+from .gateway import Ring
 from .sampler import SamplerConfig, sample_per_slot
 from .vision import refuse_unported, resolve_device
 
@@ -136,6 +139,9 @@ class ServeEngine:
         # watchdog that moves the others comes in a later slice.
         self.health = {"dispatches": 0, "rollbacks": 0, "stragglers": 0,
                        "snapshots": 0, "degraded": False}
+        # Routing telemetry (MoE only): each decode step's fraction of
+        # top-k assignments dropped at expert capacity.
+        self.rings = {"moe_drop_frac": Ring(512)} if cfg.moe else {}
         self._closed = False
 
     # -- device paths --------------------------------------------------------
@@ -153,14 +159,18 @@ class ServeEngine:
 
     def _decode_n(self, n: int):
         """``n`` fused decode + sample steps. Returns the (n, B) tokens and
-        done flags, read to the host in one copy."""
+        done flags, read to the host in one copy; an MoE engine's per-step
+        drop fractions stay on the device until one more copy after the
+        loop, and go into its ring."""
         c = self.ctrl
-        out = []
+        out, drops = [], []
         for _ in range(n):
             length = self.state["length"].clone()
-            logits, self.state = decode_step(self.params, self.cfg,
-                                             c["last_tok"][:, None],
-                                             self.state)
+            res = decode_step(self.params, self.cfg, c["last_tok"][:, None],
+                              self.state, return_stats=bool(self.rings))
+            logits, self.state = res[:2]
+            if self.rings:
+                drops.append(res[2]["moe_drop_frac"])
             nxt = sample_per_slot(logits[:, 0], self.sampler, self.generator)
             nxt = torch.where(c["live"], nxt, c["last_tok"])
             c["remaining"] -= c["live"].to(torch.int32)
@@ -172,6 +182,9 @@ class ServeEngine:
             c["last_tok"] = nxt
             out.append(torch.stack([nxt, done.to(torch.int32)]))
         out = torch.stack(out).cpu().numpy()          # (n, 2, B)
+        if drops:
+            for v in torch.stack(drops).cpu().numpy():
+                self.rings["moe_drop_frac"].push(float(v))
         return out[:, 0], out[:, 1].astype(bool)
 
     # -- public API ---------------------------------------------------------
@@ -289,9 +302,16 @@ class ServeEngine:
     def stats(self) -> dict:
         """Telemetry snapshot in the JAX engine's form: ``{"health": ...}``
         (``dispatches``, ``rollbacks``, ``stragglers``, ``snapshots``,
-        ``degraded``). The JAX engine adds ring-buffer channels for MoE
-        routing only, and MoE is not ported."""
-        return {"health": dict(self.health)}
+        ``degraded``) plus the ring-buffer channels (MoE engines:
+        ``moe_drop_frac``, each decode step's fraction of top-k routing
+        assignments dropped at expert capacity, as ``p50``/``p95``/``p99``,
+        ``n`` and ``mean``); a dense engine has no channel."""
+        out = {"health": dict(self.health)}
+        for name, ring in self.rings.items():
+            v = ring.values()
+            out[name] = dict(ring.percentiles(), n=len(ring),
+                             mean=float(v.mean()) if len(ring) else None)
+        return out
 
     def close(self):
         """Engine teardown: drop the device tensors the engine holds (the

@@ -195,3 +195,32 @@ def hybrid_params(jcfg, seed=0, dtype=None):
     if dtype is not None:
         jp = jax.device_get(jM.cast_params(jp, dtype))
     return jp, convert.params_from_jax(jp)
+
+
+MOE_ARCHS = ("phi3.5-moe-42b-a6.6b", "grok-1-314b")
+
+
+def moe_cfgs(arch=MOE_ARCHS[0], **kw):
+    """The reduced MoE ``arch`` (4 experts, top-2; float32 unless ``dtype``
+    is given) in both packages: (JAX, port)."""
+    import dataclasses
+
+    from repro.configs import get_config as jget_config
+    from repro_torch.configs import get_config
+
+    kw = {"dtype": "float32", **kw}
+    return tuple(dataclasses.replace(g(arch).model.reduced(), **kw)
+                 for g in (jget_config, get_config))
+
+
+def moe_params(jcfg, seed=0):
+    """JAX init of the whole model ``jcfg`` from PRNGKey(seed) as numpy,
+    and the same tree carried to the port: (JAX tree, port tree)."""
+    import jax
+
+    from repro.models.lm import model as jM
+    from repro_torch import convert
+
+    jp = jax.device_get(jax.jit(jM.init, static_argnums=0)(
+        jcfg, jax.random.PRNGKey(seed)))
+    return jp, convert.params_from_jax(jp)

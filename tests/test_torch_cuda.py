@@ -175,7 +175,102 @@ def test_matmul_library_reports_the_plans_tiles(gen):
         assert lib.repro_bitserial_matmul_tile(variant, got) == 0
         assert tuple(got) == (*tile, km.SLAB_WORDS)
     assert lib.repro_bitserial_matmul_tile(len(km.TILES), got) != 0
-    assert sorted(km._entries()) == ["fused", "packed"]
+    assert sorted(km._entries()) == ["fused", "fused_batched", "packed"]
+
+
+@pytest.mark.parametrize("e,m,k,n,bits", [
+    (16, 8, 4096, 640, 8),         # a phi3.5-moe decode bank, N cut
+    (3, 37, 70, 131, 8),           # M, K and N ragged against the tiles
+    (3, 17, 300, 40, 4),           # few tiles: K split with atomics
+    (3, 5, 2560, 96, 2),           # the 16-row tile, split K
+    (2, 65, 33, 200, 8)])
+def test_batched_kernel_equals_plain_and_single_launches(gen, e, m, k, n,
+                                                         bits):
+    """Kernel 2's batched entry on a bank prepacked on the card: equal to
+    its plain version and to E single launches, the same in a second
+    launch, one launch counted."""
+    qa = _codes(gen, (e, m, k), bits)
+    bank = prepack(torch.randn((e, k, n), generator=gen, device="cuda"), bits)
+    ops.reset_launch_counts()
+    got = km.bitserial_matmul_fused_batched(qa, bank.planes, bits, bits)
+    assert ops.launch_counts()["bitserial_matmul_fused_batched"] == 1
+    assert torch.equal(got, km.bitserial_matmul_fused_batched_plain(
+        qa, bank.planes, bits, bits))
+    assert torch.equal(got, torch.stack([km.bitserial_matmul_fused(
+        qa[i], bank.planes[i], bits, bits) for i in range(e)]))
+    assert torch.equal(km.bitserial_matmul_fused_batched(
+        qa, bank.planes, bits, bits), got)
+
+
+def test_batched_kernel_wraps_mod_2_32(gen):
+    """Every code 255 at <8:8>, K = 40,000, two experts: each expert's P
+    passes 2^31 and one slab and wraps like the reference's int32."""
+    e, m, k, n = 2, 8, 40000, 64
+    qa = torch.full((e, m, k), 255, dtype=torch.int32, device="cuda")
+    pw = kp.bitplane_pack_plain(torch.full((e * n, k), 255, dtype=torch.int32,
+                                           device="cuda"), 8)
+    pw = pw.reshape(8, e, n, -1).transpose(0, 1).contiguous()
+    got = km.bitserial_matmul_fused_batched(qa, pw, 8, 8)
+    assert torch.equal(got, km.bitserial_matmul_fused_batched_plain(
+        qa, pw, 8, 8))
+    assert (got == 65025 * k % 2**32 - 2**32).all()
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_bank_prepack_on_cuda_packs_once_through_kernel_1(gen, bits):
+    """An (E, K, N) bank prepacked on the card: one launch of kernel 1 for
+    the whole bank, and codes, planes, column sums and each expert's wq
+    equal to the CPU's prepack of the same weights."""
+    w = torch.randn((5, 70, 131), generator=gen, device="cuda")
+    ops.reset_launch_counts()
+    got = prepack(w, bits)
+    assert ops.launch_counts()["bitplane_pack"] == 1
+    want = prepack(w.cpu(), bits)
+    for name in ("codes", "planes", "col_sums"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
+    assert torch.equal(got.wq.scale.cpu(), want.wq.scale)
+    assert torch.equal(got.wq.qmin.cpu(), want.wq.qmin)
+
+
+def test_packed_moe_ffn_launches_one_batched_kernel_per_stage(gen,
+                                                             monkeypatch):
+    """The reduced phi3.5-moe's packed FFN on "cuda": three launches of the
+    batched entry (w_in, w_gate, w_out) and none of the single entry; every
+    bank product equal to the CPU's int-direct product of the same codes,
+    the routing equal to the CPU's and the output close to it."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import PIMQuantConfig, bitserial
+    from repro_torch.models.lm import model as M
+    from repro_torch.models.lm import moe as MOE
+
+    cfg = dataclasses.replace(
+        get_config("phi3.5-moe-42b-a6.6b").model.reduced(), dtype="float32",
+        pim=PIMQuantConfig(8, 8, backend="cuda"))
+    p = MOE.init_moe(cfg, torch.Generator().manual_seed(0), device="cpu")
+    x = torch.randn((2, 24, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(1))
+    real, calls = bitserial.int_matmul_prepacked_bank, []
+
+    def spy(qa, w, a_bits, backend):
+        out = real(qa, w, a_bits, backend)
+        calls.append((qa.cpu(), w.to("cpu"), out.cpu()))
+        return out
+
+    pc = M.prepack_params(p, cfg.pim)
+    want, aux_cpu = MOE.moe_ffn(pc, cfg, x)
+    monkeypatch.setattr(bitserial, "int_matmul_prepacked_bank", spy)
+    pg = M.prepack_params(M.to_device(p, "cuda"), cfg.pim)
+    ops.reset_launch_counts()
+    got, aux = MOE.moe_ffn(pg, cfg, x.cuda())
+    counts = ops.launch_counts()
+    assert counts["bitserial_matmul_fused_batched"] == len(calls) == 3
+    assert counts["bitserial_matmul_fused"] == 0
+    for qa, w, out in calls:
+        assert torch.equal(out, real(qa, w, 8, "int-direct"))
+    assert float(aux["drop"]) == float(aux_cpu["drop"])
+    assert (got.cpu() - want).abs().max() <= 1e-3 * want.abs().max()
 
 
 @pytest.mark.parametrize("ab,wb", [(3, 5), (1, 8), (7, 2)])
@@ -360,6 +455,7 @@ def test_cuda_layers_launch_kernels_and_no_library_product(gen, monkeypatch):
     assert ops.launch_counts() == {"bitplane_pack": 1,
                                    "bitserial_matmul_fused": 1,
                                    "bitserial_matmul_packed": 0,
+                                   "bitserial_matmul_fused_batched": 0,
                                    "conv2d_bitserial_fused": 1,
                                    "wkv_chunked": 0}
     np.testing.assert_array_equal(got_conv.cpu().numpy(), want_conv.numpy())
@@ -390,6 +486,7 @@ def test_cuda_backends_equal_and_popcount_launches_kernel_4(gen, monkeypatch,
     assert ops.launch_counts() == {"bitplane_pack": 1,
                                    "bitserial_matmul_fused": 0,
                                    "bitserial_matmul_packed": 1,
+                                   "bitserial_matmul_fused_batched": 0,
                                    "conv2d_bitserial_fused": 0,
                                    "wkv_chunked": 0}
     assert torch.equal(got, want)

@@ -347,16 +347,18 @@ def test_params_from_jax_carries_the_dense_tree(dense, arch):
 
 
 def test_moe_and_later_block_kinds_raise():
+    """An MoE FFN builds in every FFN block kind (ported with grok-1 and
+    phi3.5-moe); cross-attention still raises."""
     jc, tc = dense_cfgs("llama3.2-3b")
     from repro_torch.models.lm import MoEConfig
 
     moe = dataclasses.replace(tc, moe=MoEConfig(n_experts=4, top_k=2))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        M.init(moe, torch.Generator().manual_seed(0), device="cpu")
-    for kind in ("local_attn", "rglru"):   # an MoE FFN in any block kind
+    for kind in ("attn", "local_attn", "rglru"):
         moe_k = dataclasses.replace(moe, block_pattern=(kind,))
-        with pytest.raises(NotImplementedError, match="MoE"):
-            M.init(moe_k, torch.Generator().manual_seed(0), device="cpu")
+        p = M.init(moe_k, torch.Generator().manual_seed(0), device="cpu")
+        ffn = p["scan"][0]["ffn"]
+        assert ffn["router"].shape == (moe_k.n_layers, tc.d_model, 4)
+        assert ffn["w_in"].shape == (moe_k.n_layers, 4, tc.d_model, tc.d_ff)
     cross = dataclasses.replace(tc, block_pattern=("cross_attn",))
     with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
         M.init_state(cross, 1, 8, device="cpu")

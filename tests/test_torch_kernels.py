@@ -162,12 +162,14 @@ def test_plain_versions_do_not_count_launches():
                                                4).fused_planes, a_bits=4)
     tops.bitserial_matmul_packed(tops.pack_planes(qa, 4), pw, a_bits=4,
                                  w_bits=4)
+    tops.bitserial_matmul_batched(qa[None], a_bits=4, w_bits=4, pw=pw[None])
     x = torch.zeros((2, 16, 8))
     tops.wkv_chunked(x, x, x, x, torch.zeros((2, 8)), torch.zeros((2, 8, 8)),
                      chunk=8)
     assert tops.launch_counts() == {"bitplane_pack": 0,
                                     "bitserial_matmul_fused": 0,
                                     "bitserial_matmul_packed": 0,
+                                    "bitserial_matmul_fused_batched": 0,
                                     "conv2d_bitserial_fused": 0,
                                     "wkv_chunked": 0}
 

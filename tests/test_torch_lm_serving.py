@@ -314,7 +314,7 @@ def test_launcher_serves_lm_on_cpu_when_asked(capsys):
 
 def test_launcher_refuses_unported_arch():
     with pytest.raises(SystemExit):
-        tserve.main(["--workload", "lm", "--arch", "phi3.5-moe-42b-a6.6b",
+        tserve.main(["--workload", "lm", "--arch", "musicgen-large",
                      "--device", "cpu"])
 
 

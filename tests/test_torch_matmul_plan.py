@@ -17,6 +17,7 @@ import pytest
 from _torch_parity import assert_bits_equal, t
 
 from repro.core import bitserial as jbs
+from repro_torch.configs import get_config
 from repro_torch.kernels import bitserial_matmul as km
 from repro_torch.kernels import ops as tops
 
@@ -43,6 +44,14 @@ _SHAPES = sorted({(m, k, n) for m, k, n, *_ in
 # card's sake, whose K still needs two slabs; K = 0; one word of K.
 _EXTRA = [(4096, 40000, 4096), (8, 0, 64), (1, 32, 1)]
 H100_SMS = 132
+# The batched entry's rows (E, M, K, N): the smoke's timed and ragged rows,
+# its wrap row, and phi3.5-moe's served bank calls.
+_PHI_LENS = [len(p) for p in _SMOKE.lm_prompts(
+    np, _SMOKE.LM_HEADS[_SMOKE.PHI][1])]
+_BATCHED = sorted({r[:4] for r in _SMOKE.BATCHED_ROWS}
+                  | {_SMOKE.BATCHED_WRAP_ROW}
+                  | set(_SMOKE.served_bank_matmuls(
+                      get_config(_SMOKE.PHI).model, _PHI_LENS)))
 
 
 def _grid(plan, m, n):
@@ -73,6 +82,42 @@ def test_plan_splits_tile_k_within_slabs(m, k, n, sms):
     assert _grid(plan, m, n) >= min(sms, tiles * steps)
     if tiles >= 2 * sms:    # the card is full without splitting
         assert plan.splits == max(1, -(-kw // km.SLAB_WORDS))
+
+
+@pytest.mark.parametrize("e,m,k,n", _BATCHED)
+@pytest.mark.parametrize("sms", [H100_SMS, 114])
+def test_batched_plan_counts_every_experts_tiles(e, m, k, n, sms):
+    """The batched entry's plan tiles K as the single plan does, and
+    counts the tiles of all E products when it fills the card: a bank
+    splits K only where E times one product's tiles leaves SMs idle, and
+    the grid's z (E times the splits) stays within 65,535."""
+    kw = -(-k // 32)
+    plan = km._plan(m, n, kw, sms, e)
+    bm, bn, kstep = km.TILES[plan.variant]
+    ranges = [(s * plan.split_words, min(kw, (s + 1) * plan.split_words))
+              for s in range(plan.splits)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == kw
+    assert all(lo < hi for lo, hi in ranges)
+    assert all(32 * (hi - lo) <= 32768 for lo, hi in ranges)
+    assert plan.variant == (km.SMALL if m <= 16 else km.LARGE)
+    assert e * plan.splits <= 65535
+    tiles = e * -(-m // bm) * -(-n // bn)
+    steps = -(-kw // kstep)
+    assert tiles * plan.splits >= min(sms, tiles * steps)
+    if tiles >= 2 * sms:
+        assert plan.splits == max(1, -(-kw // km.SLAB_WORDS))
+    assert km._plan(m, n, kw, sms) == km._plan(m, n, kw, sms, 1)
+    if e > 1 and tiles < 2 * sms * e:       # one product alone splits more
+        assert km._plan(m, n, kw, sms).splits >= plan.splits
+
+
+def test_phi_decode_bank_fills_the_card_without_a_split():
+    """phi3.5-moe's decode bank (16 experts, 8 rows, 4096 x 6400): 800
+    tiles over 132 SMs, so no split; alone, one expert's 50 tiles would
+    split K."""
+    plan = km._plan(8, 6400, 128, H100_SMS, 16)
+    assert plan.variant == km.SMALL and plan.splits == 1
+    assert km._plan(8, 6400, 128, H100_SMS).splits > 1
 
 
 def test_plan_picks_both_paths_on_the_served_shapes():
@@ -106,13 +151,14 @@ def test_plain_versions_wrap_like_the_reference(m, k, n):
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "llama3.2-3b",
-                                  "recurrentgemma-9b"])
+                                  "recurrentgemma-9b", "phi3.5-moe-42b-a6.6b"])
 def test_served_lm_matmuls_are_the_engines_calls(arch):
     """``arch`` reduced, <8:8> on "cuda" (the plain versions on the CPU),
     five prompts on the smoke's ``LM_MAX_BATCH`` slots: the kernel-2 calls
     the smoke's ``recorded_matmuls`` keeps are ``served_lm_matmuls`` of the
-    prompts, the projections (each prepacked leaf but the head) and the
-    head."""
+    prompts, the projections (each prepacked leaf but the head and the
+    expert banks) and the head; and the batched entry's calls are
+    ``served_bank_matmuls`` (none without MoE)."""
     import dataclasses
 
     import torch
@@ -137,7 +183,13 @@ def test_served_lm_matmuls_are_the_engines_calls(arch):
     with _SMOKE.recorded_matmuls() as rec:
         assert len(eng.run(strict=True)) == len(lens)
     head = (cfg.d_model, cfg.vocab)
-    proj = {w.shape for _, w in _SMOKE._packed_leaves(eng.params)} - {head}
+    proj = {w.shape for _, w in _SMOKE._packed_leaves(eng.params)
+            if not w.is_bank} - {head}
     got = sorted((qa.shape[0], qa.shape[1], pw.shape[1])
                  for qa, pw, _ in rec.calls.values())
     assert got == _SMOKE.served_lm_matmuls(proj, head, lens)
+    got = sorted((*qa.shape, pw.shape[2]) for qa, pw, _ in
+                 rec.bank_calls.values())
+    assert got == (_SMOKE.served_bank_matmuls(cfg, lens) if cfg.moe else [])
+    if cfg.moe:    # capacity 24 at 32-token chunks, 16 at 16, 8 below
+        assert {m for _, m, _, _ in got} == {8, 16, 24}

@@ -373,7 +373,9 @@ def test_registry_lists_only_ported_archs():
     from repro.configs import ARCH_IDS as JARCH_IDS
 
     assert ARCH_IDS == ("llama3.2-3b", "qwen1.5-4b", "qwen3-0.6b",
-                        "granite-3-2b", "rwkv6-3b", "recurrentgemma-9b")
+                        "granite-3-2b", "rwkv6-3b", "recurrentgemma-9b",
+                        "phi3.5-moe-42b-a6.6b", "grok-1-314b")
+    assert NOT_PORTED == ("musicgen-large", "llama-3.2-vision-90b")
     assert sorted(ARCH_IDS + NOT_PORTED) == sorted(JARCH_IDS)
     for arch in NOT_PORTED:
         with pytest.raises(KeyError, match="not ported yet"):

@@ -327,7 +327,9 @@ def test_port_sources_import_no_jax_or_repro():
                 "models/lm/mlp.py", "models/lm/attention.py",
                 "configs/base.py", "configs/rwkv6_3b.py",
                 "configs/llama3_2_3b.py", "kernels/rwkv_chunk.py",
-                "serving/sampler.py", "serving/engine.py"):
+                "serving/sampler.py", "serving/engine.py",
+                "models/lm/moe.py", "serving/gateway.py",
+                "configs/phi3_5_moe_42b.py", "configs/grok_1_314b.py"):
         assert src / rel in sources, rel
     banned = ("jax", "jaxlib", "repro")
     for path in _port_sources():
