@@ -40,11 +40,18 @@ failed phase, without a GPU, or outside a checkout.
    3072 x 1024, 3072 x 8192, 8192 x 3072) at M = 256, 16 and 4 and its
    tied head 3072 x 128256 at M = 1 and 4; every projection shape of
    recurrentgemma-9b (4096 x 4096, 4096 x 256, 4096 x 12288, 12288 x 4096)
-   at M = 256 and 4 and its untied head 4096 x 256000 at M = 1 and 4; the
-   edges of their launch plan
+   at M = 256 and 4 and its untied head 4096 x 256000 at M = 1 and 4; every
+   projection shape of musicgen-large (2048 x 2048, also its head, 2048 x
+   8192, 8192 x 2048) at its batch prefill's M = 1024 and at M = 4; every
+   projection shape of llama-3.2-vision-90b (8192 x 8192, 8192 x 1024,
+   8192 x 28672, 28672 x 8192) at M = 128 and 1, its head 8192 x 128256
+   at M = 1 and a cross layer's wk / wv on 6,400 image tokens (M = 6400,
+   8192 x 1024); the edges of their launch plan
    (each row prints its tile and K splits), and ``WRAP_ROW`` (all codes
-   255, P past 2^31). Kernel 2's batched entry (one launch an MoE expert
-   bank) is held at ``BATCHED_ROWS``: phi3.5-moe's banks (16 experts,
+   255, P past 2^31). A plain version whose checking call takes over
+   ``PLAIN_ONCE_MS`` is timed by that one cold call, and every timed row
+   says which timing its ``plain_ms`` has (``plain_ms_of``).
+   Kernel 2's batched entry (one launch an MoE expert bank) is held at ``BATCHED_ROWS``: phi3.5-moe's banks (16 experts,
    4096 x 6400 and 6400 x 4096) at M = 8, 40 and 80, grok-1's (8 experts,
    6144 x 32768 and 32768 x 6144) at M = 8, ragged rows at E = 3, and
    ``BATCHED_WRAP_ROW``; each timed row prints its plan, ``kernel_ms`` /
@@ -88,7 +95,7 @@ failed phase, without a GPU, or outside a checkout.
    integer P is exact on both; the global average pool and the float
    epilogues reduce in another order on the GPU).
 7. Serves rwkv6-3b at its published width (d_model 2560, vocab 65,536;
-   random weights from a seed) and 8 of its 32 layers (``RWKV_LAYERS``)
+   random weights from a seed) and 4 of its 32 layers (``RWKV_LAYERS``)
    through ``ServeEngine``:
    in bf16 (projections in ``torch.matmul``, every prefill chunk of 16 or
    more tokens through kernel 5), then with <8:8> on the "cuda" backend in
@@ -100,9 +107,10 @@ failed phase, without a GPU, or outside a checkout.
    kernels launched (and, at <8:8>, that prepack packed every weight
    through kernel 1, one pack a projection) and the logits are finite,
    then profiles one admission and one decode dispatch for the idle share.
-   Then serves llama3.2-3b the same way at its published width and 14 of
+   Then serves llama3.2-3b the same way at its published width and 7 of
    its 28 layers (``LLAMA_LAYERS``; d_model 3072, 24 query and 8 KV heads
-   of 128, d_ff 8192, vocab 128,256, tied embeddings): bf16 (projections, scores and PV in
+   of 128, d_ff 8192, vocab 128,256, tied embeddings): bf16 (projections,
+   scores and PV in
    ``torch.matmul``, no bit-serial kernel may launch), then <8:8> on
    "cuda" in float32 (every projection on kernel 2, prepacked through
    kernel 1; the tied head quantized and packed through kernel 1 at every
@@ -111,25 +119,50 @@ failed phase, without a GPU, or outside a checkout.
    tied head (``lm_part_costs``).
    Then serves recurrentgemma-9b the same way at its published width and
    depth (38 layers: 12 units of rglru, rglru, local_attn and two more
-   rglru; d_model and lru_width 4096, 16 query heads and one KV head of
-   256, window 2048, d_ff 12288, vocab 256,000, untied head): bf16 (the
-   float32 masters cast leaf by leaf, ``cast_in_place``; no bit-serial
-   kernel may launch), then <8:8> on "cuda" in float32 (every projection
-   and the head on kernel 2, prepacked through kernel 1: 241 packs; the
+   rglru; d_model and lru_width 4096, 16 query heads and one KV head of 256, window 2048,
+   d_ff 12288, vocab 256,000, untied head): bf16 (the float32 masters
+   cast leaf by leaf, ``cast_in_place``; no bit-serial kernel may launch),
+   then <8:8> on "cuda" in float32 (every projection and the head on
+   kernel 2, prepacked through kernel 1, one pack a projection; the
    RG-LRU gate products stay float32 ``torch.matmul``), each followed by
    ``lm_part_costs`` (the attention core, and the RG-LRU's scan at a
    256-token chunk, its decode step and its two gate products).
    Then serves phi3.5-moe-42b-a6.6b the same way at its published width
    (d_model 4096, 32 query and 8 KV heads of 128, 16 experts top-2 with
-   d_ff 6400, SiLU-gated, layernorm, vocab 32,064, untied head) and 8 of
-   its 32 layers (``PHI_LAYERS``: 80 GB forces the cut): bf16 (no
-   bit-serial kernel), then <8:8> on "cuda" in float32 (the attention
-   projections and the head on kernel 2, each expert bank stage one
-   launch of kernel 2's batched entry: 24 a decode step; 57 packs through
-   kernel 1), each followed by ``lm_part_costs`` (the first MoE layer's
+   d_ff 6400, SiLU-gated, layernorm, vocab 32,064, untied head) and 4 of
+   its 32 layers (``PHI_LAYERS``: 80 GB forces a cut, the time limit this
+   one): bf16 (no bit-serial kernel), then <8:8> on "cuda" in float32 (the
+   attention projections and the head on kernel 2, each expert bank stage
+   one launch of kernel 2's batched entry: 12 a decode step; 29 packs
+   through kernel 1), each followed by ``lm_part_costs`` (the first MoE layer's
    router and dispatch, expert FFN and combine at a decode step and a
    256-token chunk); the serving line carries ``moe_drop_frac`` from
    ``stats()``.
+   Then the two archs fed by the stub frontends, through the model
+   functions (a batch prefill, then decode steps), as the JAX package
+   drives them (its ServeEngine and launcher refuse them; ``STUB_PATHS``):
+   musicgen-large at its published width and depth (48 layers; d_model
+   2048, 32 heads of 64, d_ff 8192, the tanh gelu, layernorm, 2,048
+   codes), 4 prompts of 256 stub frames (``audio_frame_embeddings``), then
+   one stub frame a decode step (32 steps in bf16, 16 at <8:8>; the codes
+   are read, not fed back); and one unit of llama-3.2-vision-90b at full
+   width (4 attn + 1 cross_attn layers; d_model 8192, 64 query and 8 KV
+   heads of 128, d_ff 28672, vocab 128,256; its cross gates set to 0.7,
+   ``set_cross_gates``), one image of 6,400 stub patch
+   embeddings (``image_patch_embeddings``) and a 128-token prompt, then 16
+   greedy decode steps, the same image at every call. Each in bf16 (no
+   bit-serial kernel) and at <8:8> on "cuda" in float32 (every projection
+   and the head prepacked through kernel 1, one launch a weight, and on
+   kernel 2: one launch a projection and the head each decode step), a
+   warm run, a timed run with the launch counts set to 0 just before it
+   and read just after (prefill and decode tok/s, peak memory from deploy
+   on) and a profile of the prefill and 8 steps (``serve_stub``); the
+   vision paths also print the device ms of the cross layer at the prefill
+   and at a decode step beside those of its wk / wv projection of the
+   image tokens (``cross_layer_costs``). The warm run at <8:8> records
+   kernel 2's calls, which must be ``served_stub_matmuls`` (the cross
+   layer's wk / wv at M = 6400 among them), each held against the plain
+   version.
    The warm run of each path serves the timed run's eight requests; at
    <8:8> it keeps the operands of kernel 2's first call at each distinct
    shape, which must be ``served_lm_matmuls`` (every projection at each
@@ -154,8 +187,21 @@ failed phase, without a GPU, or outside a checkout.
    prompts into a 4-slot grid, two decode steps at M = 4):
    prepacked planes and banks equal bit for bit, every quantized product
    within 1e-5 of the CPU's on the same input, every bank product equal
-   to the CPU's, logits within 0.1 in relative L2
-   (``lm_pim_gpu_vs_cpu``).
+   to the CPU's, logits within 0.1 in relative L2, printed beside the
+   card's own spread under a 1e-6 jitter of the weights
+   (``lm_pim_gpu_vs_cpu``). The stub-frontend archs the same way through
+   the model functions (``stub_gpu_vs_cpu``: two prompts of 48 frames or
+   tokens in one batch prefill, 4 greedy decode steps, equal codes; 16
+   at <8:8>, two decode steps): musicgen-large at 2 layers in float32
+   and 1 at <8:8>; the vision arch at 2 layers (attn, then cross_attn)
+   with all 6,400 image tokens in float32, and with 64 of them at <8:8>
+   (the CPU's plain products at 6,400 would take minutes), where the cross
+   layer alone is held too. Every cross gate
+   is set (``set_cross_gates``; 0 at init zeroes the branch), the images
+   share a component across their patches (``stub_host_inputs``), and
+   the card's logits at gate 0 must be further from the CPU's than 1e-2
+   of max|cpu| (float32) or 0.1 in relative L2 (<8:8>). The vision <8:8> prompts are 16 tokens: at 48, the two layers'
+   reading came near the gate, and so did the card's own spread.
 
 Kernel 5 (the chunked WKV) is float32 arithmetic that sums in another
 order than its plain version, so it is held to the reference's tolerances
@@ -188,6 +234,9 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 FP32_FLOPS_PER_S = 67e12      # float32 outside the tensor cores
+# A plain version whose checking call takes longer than this (ms) is timed
+# by that one call (a row of a served prefill takes it seconds).
+PLAIN_ONCE_MS = 100.0
 
 # LM serving (rwkv6-3b and llama3.2-3b): decode slots, and the longest
 # prompt (512) plus 32 new tokens.
@@ -230,6 +279,21 @@ FUSED_ROWS = [
     *[(m, k, n, 8, 8, True) for m in (256, LM_MAX_BATCH)
       for k, n in ((4096, 4096), (4096, 256), (4096, 12288), (12288, 4096))],
     (1, 4096, 256000, 8, 8, True), (LM_MAX_BATCH, 4096, 256000, 8, 8, True),
+    # musicgen-large at its batch prefill (4 prompts of 256 frames: M =
+    # 1024) and a decode step (M = 4): K x N is 2048 x 2048 (wq, wk, wv,
+    # wo and the head, 2,048 codes), 2048 x 8192 (w_in) and 8192 x 2048
+    # (w_out).
+    *[(m, k, n, 8, 8, True) for m in (4 * 256, 4)
+      for k, n in ((2048, 2048), (2048, 8192), (8192, 2048))],
+    # One llama-3.2-vision-90b unit at its prefill (one 128-token prompt)
+    # and a decode step (M = 1): K x N is 8192 x 8192 (wq, wo), 8192 x 1024
+    # (wk, wv), 8192 x 28672 (w_in, w_gate), 28672 x 8192 (w_out); the
+    # untied head 8192 x 128256 at M = 1; and the cross layer's wk / wv on
+    # the 6,400 image tokens, at every call.
+    *[(m, k, n, 8, 8, True) for m in (128, 1)
+      for k, n in ((8192, 8192), (8192, 1024), (8192, 28672),
+                   (28672, 8192))],
+    (1, 8192, 128256, 8, 8, True), (6400, 8192, 1024, 8, 8, True),
     *[(m, 2560, 2560, 8, 8, False) for m in (128, 64, 32, 8, 2, 1)],
     *MATMUL_EDGES]
 PACKED_ROWS = [
@@ -262,16 +326,31 @@ BATCHED_ROWS = [
 # (E, M, K, N) with every code 255 at <8:8>, through the batched entry.
 BATCHED_WRAP_ROW = (2, 8, 40000, 64)
 # phi3.5-moe's depth on the card: its published 32 layers are 41.87 B
-# parameters (83.7 GB in bf16), so it is served at 8 (10.67 B; at <8:8>
-# the float32 masters 42.7 GB, byte codes and planes ~10.5 GB each).
+# parameters (83.7 GB in bf16), so it could be served at 8 at most (10.67
+# B; at <8:8> the float32 masters 42.7 GB, byte codes and planes ~10.5 GB
+# each); it is served at 4, as the other LM paths below are cut.
 PHI = "phi3.5-moe-42b-a6.6b"
-PHI_LAYERS = 8
+PHI_LAYERS = 4
 # The served depth of two earlier LM paths, cut from their published 32
-# and 28 layers to keep the script well inside its time limit: their
-# serving phases are host-bound and scale with depth, and the widths, the
-# kernels each layer launches and the calls they give kernel 2 stay.
-RWKV_LAYERS = 8
-LLAMA_LAYERS = 14
+# and 28 layers to keep the script inside its time limit beside the
+# stub-frontend paths: their serving phases are host-bound and scale with
+# depth, and the widths, the kernels each layer launches and the calls
+# they give kernel 2 stay. recurrentgemma-9b keeps its published 38
+# layers, the one path that fills the card (~69 GB at <8:8>).
+RWKV_LAYERS = 4
+LLAMA_LAYERS = 7
+# The archs fed by the stub frontends. They run through the model
+# functions, as in the JAX package (its ServeEngine and launcher refuse
+# them): a batch prefill, then decode steps. musicgen-large at its
+# published 48 layers takes 4 prompts of 256 frames (5.1 s of audio at
+# EnCodec's 50 Hz); llama-3.2-vision-90b is served one unit deep (4 attn +
+# 1 cross_attn layers of its 100: a second unit would need ~76 GB at
+# <8:8>), one image of 6,400 patch embeddings and a 128-token prompt.
+MUSICGEN = "musicgen-large"
+VISION = "llama-3.2-vision-90b"
+STUB_PATHS = {MUSICGEN: dict(layers=48, batch=4, prompt=256),
+              VISION: dict(layers=5, batch=1, prompt=128)}
+STUB_MAX_LEN = 256 + 32
 # Rows (N, H, C, O, k, stride, pad) of kernel 3 at <8:8>: the convs the
 # served paths give it at 224 px in a bucket of 8.
 CONV_ROWS = [
@@ -319,16 +398,23 @@ SERVED_BUCKETS = (8, 4)
 # shape, which must be ``served_lm_matmuls``; each is held against the
 # plain version at its own launch plan (``KernelChecks.served_matmul``).
 # phi3.5-moe's expert banks are kernel 2's batched calls
-# (``served_bank_matmuls``).
+# (``served_bank_matmuls``). The warm run of each <8:8> stub-frontend path
+# (musicgen-large, llama-3.2-vision-90b) records the same way; its calls
+# must be ``served_stub_matmuls``.
 LM_PROJ_SHAPES = {
     "rwkv6-3b": ((2560, 2560), (2560, 8960), (8960, 2560)),
     "llama3.2-3b": ((3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072)),
     "recurrentgemma-9b": ((4096, 4096), (4096, 256), (4096, 12288),
                           (12288, 4096)),
     PHI: ((4096, 4096), (4096, 1024)),
+    MUSICGEN: ((2048, 2048), (2048, 8192), (8192, 2048)),
+    VISION: ((8192, 8192), (8192, 1024), (8192, 28672), (28672, 8192)),
 }
 LM_HEADS = {"rwkv6-3b": (2560, 65536), "llama3.2-3b": (3072, 128256),
-            "recurrentgemma-9b": (4096, 256000), PHI: (4096, 32064)}
+            "recurrentgemma-9b": (4096, 256000), PHI: (4096, 32064),
+            MUSICGEN: (2048, 2048), VISION: (8192, 128256)}
+# K x N of a cross layer's wk / wv, which project the image tokens.
+CROSS_KV_SHAPES = {VISION: (8192, 1024)}
 
 # Rows (M, K, bits) of kernel 1, timed: the padded activation maps the
 # "cuda" paths pack at 224 px in a bucket of 8 (ResNet-50's stem, s0 3x3
@@ -469,7 +555,22 @@ class KernelChecks:
 
     def _record(self, name, shape, bits, got, want, kernel_fn, plain_fn,
                 library_fn, nbytes, macs, timing, plan=None, extra=None):
+        """Holds ``got`` equal to ``want`` and prints the row. ``want``
+        None: the plain version's checking call (``plain_fn``) makes it,
+        timed; where that call took over ``PLAIN_ONCE_MS``, its time (a
+        cold call, first use's allocations in it) is the row's
+        ``plain_ms``, and the plain version runs no more; ``plain_ms_of``
+        says which timing a row has."""
         torch = self.torch
+        first_plain_ms = None
+        if want is None:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = plain_fn()
+            end.record()
+            torch.cuda.synchronize()
+            first_plain_ms = start.elapsed_time(end)
         torch.cuda.synchronize()
         if got.shape != want.shape or not torch.equal(got, want):
             diff = (got.long() - want.long()).abs().max().item() \
@@ -480,12 +581,16 @@ class KernelChecks:
         if plan is not None:
             row["plan"] = plan
         if timing:
+            once = (first_plain_ms or 0) > PLAIN_ONCE_MS
             bound_ms, bound_by = self._bound(nbytes, macs)
             kernel_ms, kernel_host_ms = timed_ms(kernel_fn, 20)
             row.update(
                 kernel_ms=kernel_ms, kernel_host_ms=kernel_host_ms,
                 kernel_device_ms=device_ms(kernel_fn, 20, self.clock_hz),
-                plain_ms=timed_ms(plain_fn, 2, rounds=1)[0],
+                plain_ms=first_plain_ms if once
+                else timed_ms(plain_fn, 2, rounds=1)[0],
+                plain_ms_of="one cold call" if once
+                else "two calls after a warm one",
                 library_ms=None if library_fn is None
                 else timed_ms(library_fn, 5)[0],
                 library_device_ms=None if library_fn is None
@@ -504,7 +609,7 @@ class KernelChecks:
         kw = (k + 31) // 32
         self._record(
             "bitplane_pack", dict(M=m, K=k), f"{bits} planes",
-            kp.bitplane_pack(q, bits), kp.bitplane_pack_plain(q, bits),
+            kp.bitplane_pack(q, bits), None,
             lambda: kp.bitplane_pack(q, bits),
             lambda: kp.bitplane_pack_plain(q, bits), None,
             nbytes=4 * m * k + 4 * bits * m * kw, macs=0, timing=timing)
@@ -521,8 +626,7 @@ class KernelChecks:
         a64, w64 = qa.double(), pw.codes.double()
         self._record(
             "bitserial_matmul_fused", dict(M=m, K=k, N=n), f"<{wb}:{ab}>",
-            km.bitserial_matmul_fused(qa, pw.planes, ab, wb),
-            km.bitserial_matmul_fused_plain(qa, pw.planes, ab, wb),
+            km.bitserial_matmul_fused(qa, pw.planes, ab, wb), None,
             lambda: km.bitserial_matmul_fused(qa, pw.planes, ab, wb),
             lambda: km.bitserial_matmul_fused_plain(qa, pw.planes, ab, wb),
             lambda: torch.matmul(a64, w64),
@@ -543,8 +647,7 @@ class KernelChecks:
         a64, w64 = qa.double(), pw.codes.double()
         self._record(
             "bitserial_matmul_packed", dict(M=m, K=k, N=n), f"<{wb}:{ab}>",
-            km.bitserial_matmul_packed(pa, pw.planes, ab, wb),
-            km.packed_matmul_plain(pa, pw.planes),
+            km.bitserial_matmul_packed(pa, pw.planes, ab, wb), None,
             lambda: km.bitserial_matmul_packed(pa, pw.planes, ab, wb),
             lambda: km.packed_matmul_plain(pa, pw.planes),
             lambda: torch.matmul(a64, w64),
@@ -602,7 +705,7 @@ class KernelChecks:
                 kernel_ms=kernel_ms, kernel_host_ms=kernel_host_ms,
                 kernel_device_ms=device_ms(kernel, 20, self.clock_hz),
                 loop_device_ms=device_ms(loop, 20, self.clock_hz),
-                plain_ms=plain_ms,
+                plain_ms=plain_ms, plain_ms_of="one cold call",
                 library_ms=timed_ms(lambda: torch.bmm(a64, w64), 5)[0],
                 library_device_ms=device_ms(lambda: torch.bmm(a64, w64), 5,
                                             self.clock_hz),
@@ -737,8 +840,7 @@ class KernelChecks:
         self._record(
             "conv2d_bitserial_fused",
             dict(N=n, H=h, C=c, O=o, k=ks, stride=stride, pad=pad),
-            f"<{wb}:{ab}>", got,
-            kc.conv2d_fused_plain(pa, pk.fused_planes, **geo),
+            f"<{wb}:{ab}>", got, None,
             lambda: kc.conv2d_bitserial_fused(pa, pk.fused_planes, c=c,
                                               **geo),
             lambda: kc.conv2d_fused_plain(pa, pk.fused_planes, **geo),
@@ -899,11 +1001,15 @@ def check_imma_build(build, name) -> None:
 
 def profile_call(torch, fn) -> dict:
     """Device time by kernel over one call of ``fn`` (torch.profiler), its
-    wall time under the profiler and the device's idle share of it."""
+    wall time under the profiler and the device's idle share of it, and
+    the host's synchronising CUDA calls. It traces the card's activity
+    (kernels, copies and the CUDA runtime calls) alone: the host's
+    operator events would slow the host they measure, and their processing
+    after a call of ~100k launches (musicgen-large's 48 layers at <8:8>)
+    takes about a minute."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1183,6 +1289,33 @@ def served_lm_matmuls(proj, head, lens) -> list:
                   | {(m, *head) for m in (1, LM_MAX_BATCH)})
 
 
+def served_stub_matmuls(proj, head, batch, prompt, cross=None,
+                        n_image=0) -> list:
+    """(M, K, N) of each distinct kernel-2 call of a <8:8> stub-frontend
+    path (a batch prefill of ``batch`` prompts of ``prompt`` frames or
+    tokens, then decode steps): each projection (K x N in ``proj``) at the
+    prefill (M = batch x prompt) and at a decode step (M = batch), the head
+    (``head``) at M = batch (the prefill's last tokens and each step), and
+    a cross layer's wk / wv (``cross``) on the ``n_image`` image tokens a
+    row at every call."""
+    calls = {(m, k, n) for k, n in proj for m in (batch * prompt, batch)}
+    calls.add((batch, *head))
+    if cross:
+        calls.add((batch * n_image, *cross))
+    return sorted(calls)
+
+
+def stub_path_matmuls(arch) -> list:
+    """``served_stub_matmuls`` of ``arch``'s path on the card
+    (``STUB_PATHS``)."""
+    from repro_torch.configs import get_config
+
+    return served_stub_matmuls(
+        LM_PROJ_SHAPES[arch], LM_HEADS[arch], STUB_PATHS[arch]["batch"],
+        STUB_PATHS[arch]["prompt"], CROSS_KV_SHAPES.get(arch),
+        get_config(arch).model.n_image_tokens)
+
+
 def served_bank_matmuls(cfg, lens) -> list:
     """(E, M, K, N) of each distinct batched kernel-2 call of an MoE LM
     (``cfg``) served prompts of ``lens`` tokens on ``LM_MAX_BATCH`` slots at
@@ -1225,6 +1358,21 @@ def check_served_matmuls(np, kc, arch, rec):
         kc.served_matmul(arch, qa.cuda(), pw.cuda(), a_bits)
     for qa, pw, a_bits in rec.bank_calls.values():
         kc.served_bank(arch, qa.cuda(), pw.cuda(), a_bits)
+
+
+def check_stub_matmuls(kc, arch, rec):
+    """The kernel-2 calls the warm run of ``arch``'s <8:8> stub-frontend
+    path recorded are ``stub_path_matmuls(arch)``, none batched, and each
+    equals the plain version."""
+    got = sorted((qa.shape[0], qa.shape[1], pw.shape[1])
+                 for qa, pw, _ in rec.calls.values())
+    want = stub_path_matmuls(arch)
+    if got != want or rec.bank_calls:
+        raise AssertionError(f"{arch}: kernel 2 ran at (M, K, N) {got} and "
+                             f"{len(rec.bank_calls)} batched shapes, "
+                             f"served_stub_matmuls gives {want}")
+    for qa, pw, a_bits in rec.calls.values():
+        kc.served_matmul(arch, qa.cuda(), pw.cuda(), a_bits)
 
 
 def serve_path(torch, np, ops, eng, model, backend, imgs, request_cls):
@@ -1329,6 +1477,10 @@ LM_PATH_KERNELS = {
                                     "bitplane_pack"),
     ("recurrentgemma-9b", "bf16"): (),
     ("recurrentgemma-9b", "<8:8> cuda"): ("bitserial_matmul_fused",),
+    (MUSICGEN, "bf16"): (),
+    (MUSICGEN, "<8:8> cuda"): ("bitserial_matmul_fused",),
+    (VISION, "bf16"): (),
+    (VISION, "<8:8> cuda"): ("bitserial_matmul_fused",),
 }
 BITSERIAL_KERNELS = ("bitplane_pack", "bitserial_matmul_fused",
                      "bitserial_matmul_packed", "conv2d_bitserial_fused",
@@ -1569,6 +1721,298 @@ def serve_lm(torch, np, ops, cfg, params, label, max_new):
     return launches, matmuls
 
 
+def set_cross_gates(torch, params, value=0.7):
+    """Sets every cross-attention gate of an LM tree (0 at init, where
+    tanh(0) zeroes the cross branch) to ``value`` plus 0.1 a rep, as the
+    tests do, so that the branch counts and the reps differ; ``value``
+    None sets them to 0. Returns the tree."""
+    for blk in params["scan"] + params["rest"]:
+        a = blk.get("attn", {})
+        if "gate" in a:
+            g = a["gate"]
+            a["gate"] = torch.zeros_like(g) if value is None else (
+                value + 0.1 * torch.arange(g.numel(), dtype=g.dtype,
+                                           device=g.device)).reshape(g.shape)
+    return params
+
+
+def row_rel_l2(a, b):
+    """The worst row's relative L2 distance of logits ``a`` from ``b``
+    (numpy, the vocab last)."""
+    import numpy as np
+
+    return float(np.max(np.linalg.norm(a - b, axis=-1)
+                        / np.linalg.norm(b, axis=-1)))
+
+
+def stub_host_inputs(np, cfg, batch, prompt, steps, seed):
+    """The host inputs of a stub-frontend comparison, float32 numpy from
+    ``seed``: musicgen's ``prompt + steps`` frames (normal draws times
+    d_model**-0.5, as the stub draws; the prompt, then one frame a decode
+    step), or a vision prompt of token ids and one image of
+    ``cfg.n_image_tokens`` patch embeddings a row. An image is one draw
+    shared by its patches plus a draw a patch, at unit scale: the stub's
+    independent patches at d_model**-0.5 average out over 6,400 keys and
+    sit at 1/sqrt(d_model) of the residual the cross layer adds to, so the
+    cross branch would move the logits by ~1e-4 of their largest and a
+    fault in it would not show. Returns (prompt, step frames or None,
+    image or None)."""
+    rng = np.random.default_rng(seed)
+    if not cfg.embed_inputs:
+        frames = (rng.standard_normal((batch, prompt + steps, cfg.d_model))
+                  * cfg.d_model**-0.5).astype(np.float32)
+        return frames[:, :prompt], frames[:, prompt:], None
+    toks = rng.integers(0, cfg.vocab, (batch, prompt)).astype(np.int32)
+    img = (rng.standard_normal((batch, cfg.n_image_tokens, cfg.d_model))
+           + rng.standard_normal((batch, 1, cfg.d_model))).astype(
+        np.float32) if cfg.cross_attn_every else None
+    return toks, None, img
+
+
+def stub_inputs(torch, np, cfg, batch, prompt, steps):
+    """A served stub-frontend path's inputs on the card, in the model's
+    dtype, from the port's stubs: musicgen's ``prompt + steps`` frames
+    (``audio_frame_embeddings``; the prompt, then one frame a decode step),
+    or a vision prompt of token ids (numpy seed 0) and one image a row
+    (``image_patch_embeddings``). Returns (prompt, step frames or None,
+    image or None)."""
+    from repro_torch.models.lm import model as M
+    from repro_torch.models.lm import stubs
+
+    dt = M.torch_dtype(cfg.dtype)
+    if not cfg.embed_inputs:
+        frames = stubs.audio_frame_embeddings(cfg, batch, prompt + steps,
+                                              dtype=dt, device="cuda")
+        return frames[:, :prompt], frames[:, prompt:], None
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (batch, prompt))
+    img = stubs.image_patch_embeddings(cfg, batch, dtype=dt, device="cuda") \
+        if cfg.cross_attn_every else None
+    return torch.from_numpy(toks.astype(np.int32)).cuda(), None, img
+
+
+def stub_run(torch, ops, params, cfg, inputs, steps):
+    """A batch prefill of ``inputs``' prompt, then ``steps`` greedy decode
+    steps, the same image at every call (a musicgen step takes the stub's
+    next frame: its codebook frontend is a stub, so the sampled codes are
+    read, not fed back). The prefill and the decode loop are each timed on
+    the host and end in a synchronise. Returns the host seconds of each,
+    the greedy codes (B, steps + 1) and the last step's logits, on the
+    card, and the kernel launches of the decode loop."""
+    from repro_torch.models.lm import model as M
+
+    x0, frames, img = inputs
+    with torch.no_grad():
+        st = M.init_state(cfg, x0.shape[0], STUB_MAX_LEN, "cuda")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lo, st = M.prefill(params, cfg, x0, st, image_embeds=img)
+        codes = [lo[:, -1].argmax(-1).to(torch.int32)]
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        before = ops.launch_counts()
+        t = time.perf_counter()
+        for i in range(steps):
+            x = codes[-1][:, None] if frames is None else frames[:, i:i + 1]
+            lo, st = M.decode_step(params, cfg, x, st, image_embeds=img)
+            codes.append(lo[:, -1].argmax(-1).to(torch.int32))
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t
+    after = ops.launch_counts()
+    return dict(prefill_s=prefill_s, decode_s=decode_s,
+                codes=torch.stack(codes, 1), logits=lo,
+                decode_launches={k: after[k] - before[k] for k in after})
+
+
+def serve_stub(torch, np, ops, cfg, params, label, steps):
+    """One stub-frontend path (``cfg.name`` is the arch; its batch and
+    prompt in ``STUB_PATHS``): deploy (at <8:8> ``prepack_params``, every
+    projection and the head packed through kernel 1, one launch a weight),
+    a warm run that keeps the operands of kernel 2's first call at each
+    distinct shape (``recorded_matmuls``), then the timed run
+    (``stub_run``) with the launch counts set to 0 just before it and read
+    just after. Checks the path's kernels launched (``LM_PATH_KERNELS``; a
+    bf16 path launches no bit-serial kernel; at <8:8> each decode step
+    launches kernel 2 once a projection and the head, and kernel 1 never),
+    and the codes and logits; prints prefill and decode tok/s and the peak
+    device memory from deploy on; then profiles a prefill and 8 decode
+    steps for the device's idle share. Returns the deployed tree and the
+    recorded kernel-2 calls."""
+    from repro_torch.models.lm import model as M
+
+    arch = cfg.name
+    b, s = STUB_PATHS[arch]["batch"], STUB_PATHS[arch]["prompt"]
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with torch.no_grad(), prepack_packs() as packs:
+        deployed = M.prepack_params(params, cfg.pim)
+    torch.cuda.synchronize()
+    deploy_s = time.perf_counter() - t
+    packed, n_proj = {}, len(list(_packed_leaves(deployed)))
+    if cfg.pim:
+        packed = packs.check(f"{arch} {label} prepack")
+        if packed["prepack_packs"] != n_proj:
+            raise AssertionError(f"{arch} {label}: prepack packed "
+                                 f"{packed['prepack_packs']} weights on the "
+                                 f"card, the tree has {n_proj} projections")
+    inputs = stub_inputs(torch, np, cfg, b, s, steps)
+    with recorded_matmuls() as matmuls:
+        stub_run(torch, ops, deployed, cfg, inputs, steps)
+    ops.reset_launch_counts()
+    run = stub_run(torch, ops, deployed, cfg, inputs, steps)
+    launches = ops.launch_counts()
+    codes, logits = run["codes"].cpu(), run["logits"]
+    if codes.shape != (b, steps + 1) or not bool(
+            ((codes >= 0) & (codes < cfg.vocab)).all()) \
+            or logits.shape != (b, 1, cfg.vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch} {label}: codes {tuple(codes.shape)}, "
+                             f"logits {tuple(logits.shape)} or non-finite")
+    missing = [k for k in LM_PATH_KERNELS[(arch, label)] if not launches[k]]
+    stray = [k for k in BITSERIAL_KERNELS if label == "bf16" and launches[k]]
+    if missing or stray:
+        raise AssertionError(f"{arch} {label}: {missing} never launched, "
+                             f"{stray} launched on the float path: "
+                             f"{launches}")
+    per_step = {k: v / steps for k, v in run["decode_launches"].items() if v}
+    want = {"bitserial_matmul_fused": n_proj} if cfg.pim else {}
+    if per_step != want:
+        raise AssertionError(f"{arch} {label}: kernel launches a decode "
+                             f"step {per_step}, want {want}")
+    print(json.dumps(dict(
+        serving=arch, path=label, layers=cfg.n_layers, blocks=cfg.blocks[:5],
+        d_model=cfg.d_model, vocab=cfg.vocab, batch=b, prompt_tokens=b * s,
+        image_tokens=cfg.n_image_tokens if cfg.cross_attn_every else 0,
+        decode_steps=steps, deploy_s=deploy_s, prefill_s=run["prefill_s"],
+        prefill_tok_per_s=b * s / run["prefill_s"],
+        decode_s=run["decode_s"],
+        decode_tok_per_s=b * steps / run["decode_s"],
+        decode_step_ms=run["decode_s"] / steps * 1e3, launches=launches,
+        kernel_launches_per_decode_step=per_step, **packed,
+        codes=codes[0, :8].tolist(),
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)), flush=True)
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    prof = profile_call(torch, lambda: stub_run(torch, ops, deployed, cfg,
+                                                inputs, min(8, steps)))
+    prof.update(launches=ops.launch_counts(),
+                profile_s=time.perf_counter() - t)
+    print(json.dumps(dict(profile_prefill_decode_8=prof, serving=arch,
+                          path=label)), flush=True)
+    return deployed, matmuls
+
+
+def cross_layer_costs(torch, cfg, deployed, label, clock_hz):
+    """Device ms (calls queued behind a spin) of the first cross layer of
+    a vision path (norm, gated cross-attention, FFN) at its prefill (the
+    prompt's tokens; the image keys and values written) and at a decode
+    step (one token a row; the image cache kept), and of its wk / wv
+    projection of the image tokens alone, which the layer runs at every
+    call, as the JAX package's does (``less_projection`` is the layer's
+    time less the projection's)."""
+    from repro_torch.core.pim_layers import pim_linear
+    from repro_torch.models.lm import cache as C
+    from repro_torch.models.lm import model as M
+    from repro_torch.models.lm import stubs
+
+    unit = M.layer_plan(cfg)[0]
+    blk = M._rep(deployed["scan"][unit.index("cross_attn")], 0)
+    b, s = STUB_PATHS[cfg.name]["batch"], STUB_PATHS[cfg.name]["prompt"]
+    dt = M.torch_dtype(cfg.dtype)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    img = stubs.image_patch_embeddings(cfg, b, gen, dt, device="cuda")
+    st = C.init_layer_state("cross_attn", cfg, b, STUB_MAX_LEN, "cuda", dt)
+    row = {}
+    with torch.no_grad():
+        for name, sq, start in (("prefill", s, 0), ("decode", 1, s)):
+            x = (torch.randn((b, sq, cfg.d_model), generator=gen,
+                             device="cuda") * 0.1).to(dt)
+            idx = torch.full((b,), start, dtype=torch.int32, device="cuda")
+            pos = idx[:, None] + torch.arange(sq, dtype=torch.int32,
+                                              device="cuda")[None]
+            layer = device_ms(lambda: M.apply_block(
+                "cross_attn", blk, cfg, x, pos, st, idx, img), 5, clock_hz)
+            proj = device_ms(lambda: [pim_linear(img, blk["attn"][k],
+                                                 cfg=cfg.pim)
+                                      for k in ("wk", "wv")], 5, clock_hz)
+            row[name] = dict(tokens=b * sq, layer=layer,
+                             image_kv_projection=proj,
+                             less_projection=layer - proj)
+    print(json.dumps(dict(cross_layer_device_ms=row, serving=cfg.name,
+                          path=label, image_tokens=img.shape[1])),
+          flush=True)
+
+
+def stub_gpu_vs_cpu(torch, np, ops, arch, **cfg_kw):
+    """``arch`` (a stub-frontend arch) at full width, float32, cut as
+    ``cfg_kw`` says (its layers), one set of weights, on the card and on
+    the CPU (plain versions): two prompts of 48 frames or tokens (and two
+    images of the arch's patch embeddings) in one batch prefill, then 4
+    greedy decode steps. Equal codes; the prefill logits within rtol 1e-3
+    and atol 1e-3*max|cpu|. The cross gates are set (``set_cross_gates``),
+    and the CPU's prefill logits must differ from the card's at gate 0 by
+    more than 1e-2 of max|cpu|, so that the cross branch is held."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import model as M
+
+    cfg = dataclasses.replace(get_config(arch).model, dtype="float32",
+                              **cfg_kw)
+    # Drawn on the card, kept on the CPU (the CPU's generator is slower).
+    params = M.init(cfg, torch.Generator(device="cuda").manual_seed(1),
+                    device="cpu")
+    if cfg.cross_attn_every:
+        set_cross_gates(torch, params)
+    x0, frames, img = stub_host_inputs(np, cfg, 2, 48, 4, seed=2)
+    logits, codes = {}, {}
+    ops.reset_launch_counts()
+    for device in ("cuda", "cpu"):
+        def conv(a):
+            return None if a is None else torch.from_numpy(a).to(device)
+
+        with torch.no_grad():
+            p = M.to_device(params, device)
+            st = M.init_state(cfg, 2, 64, device)
+            image = conv(img)
+            lo, st = M.prefill(p, cfg, conv(x0), st, image_embeds=image)
+            logits[device] = lo.cpu().numpy()
+            got = [lo[:, -1].argmax(-1).to(torch.int32)]
+            for i in range(4):
+                x = got[-1][:, None] if frames is None \
+                    else conv(frames[:, i:i + 1])
+                lo, st = M.decode_step(p, cfg, x, st, image_embeds=image)
+                got.append(lo[:, -1].argmax(-1).to(torch.int32))
+            codes[device] = torch.stack(got, 1).cpu().tolist()
+            del p, st, image
+    launches = ops.launch_counts()
+    gpu, cpu = logits["cuda"], logits["cpu"]
+    err = float(np.abs(gpu - cpu).max())
+    scale = float(np.abs(cpu).max())
+    gate_moves = None
+    if cfg.cross_attn_every:
+        with torch.no_grad():
+            p = set_cross_gates(torch, M.to_device(params, "cuda"), None)
+            lo, _ = M.prefill(p, cfg, torch.from_numpy(x0).cuda(),
+                              M.init_state(cfg, 2, 64, "cuda"),
+                              image_embeds=torch.from_numpy(img).cuda())
+            gate_moves = float(np.abs(lo.cpu().numpy() - cpu).max()) / scale
+            del p, lo
+    stray = [k for k in BITSERIAL_KERNELS if launches[k]]
+    if codes["cuda"] != codes["cpu"] or stray or not np.allclose(
+            gpu, cpu, rtol=1e-3, atol=1e-3 * scale) or (
+            gate_moves is not None and gate_moves <= 1e-2):
+        raise AssertionError(
+            f"{arch} GPU vs CPU: codes {codes['cuda']} vs {codes['cpu']}, "
+            f"max |dlogit| {err} (max|cpu| {scale}), the cross gate moves "
+            f"{gate_moves} of max|cpu|, launches {launches}")
+    print(json.dumps(dict(
+        gpu_vs_cpu=arch, layers=cfg.n_layers, blocks=cfg.blocks,
+        batch=2, prompt=48, decode_steps=4,
+        image_tokens=cfg.n_image_tokens if cfg.cross_attn_every else 0,
+        codes=codes["cuda"], max_abs_diff=err, max_abs_cpu=scale,
+        gate_moves_of_max_abs_cpu=gate_moves)), flush=True)
+
+
 def lm_gpu_vs_cpu(torch, np, ops, arch, kv_quant=False, n_layers=2,
                   prompt_len=48):
     """``arch`` at full width, ``n_layers`` layers, float32, one set of
@@ -1681,12 +2125,15 @@ def _packed_leaves(tree, path=""):
 
 
 def lm_pim_gpu_vs_cpu(torch, np, ops, arch, block_pattern=None,
-                      shared=None):
+                      shared=None, **cfg_kw):
     """``arch`` at full width, 1 layer (of ``block_pattern``'s kind where
-    given), <8:8> on "cuda", float32, one set of weights, on the card and
-    on the CPU. Two prompts (48 = 32 + 16 and 20 = 16 + 4) are prefilled
-    chunk by chunk into slots 0 and 1 of a 4-slot grid, then two decode
-    steps run at M = 4 on the same tokens. Calls that pass one ``shared``
+    given; ``cfg_kw`` overrides the config further), <8:8> on "cuda",
+    float32, one set of weights, on the card and on the CPU. Two prompts
+    (48 = 32 + 16 and 20 = 16 + 4) are prefilled chunk by chunk into slots
+    0 and 1 of a 4-slot grid, then two decode steps run at M = 4 on the
+    same tokens; a stub-frontend arch instead prefills two prompts of 16
+    frames or tokens (and two images) in one batch, then runs two decode
+    steps at M = 2 (``stub_host_inputs``). Calls that pass one ``shared``
     dict serve the first call's embedding and head, and the CPU prepacks
     the head once (a 4096 x 256,000 head takes it ~25 s).
 
@@ -1705,7 +2152,11 @@ def lm_pim_gpu_vs_cpu(torch, np, ops, arch, block_pattern=None,
        product (kernel 2's batched entry) recomputed on the CPU from the
        same codes: the same P, bit for bit;
     3. the logits against the CPU's own run: each row within 0.1 in
-       relative L2, where a wiring fault gives O(1); the error is printed.
+       relative L2, where a wiring fault gives O(1); the error is printed
+       beside the card's own spread (``jitter_rel_l2``: its logits with the
+       float weights moved by 1e-6 relative); with cross layers (their
+       gates set, ``set_cross_gates``), the card's logits at gate 0 must
+       be more than 0.1 from the CPU's.
     The CPU runs ``int-direct``, whose P equals Eq. 1's bit for bit
     (``backends_agree``) and which is far faster there than the plain
     version of kernel 2."""
@@ -1718,10 +2169,13 @@ def lm_pim_gpu_vs_cpu(torch, np, ops, arch, block_pattern=None,
     from repro_torch.serving.engine import _pow2_chunks
 
     kind = {} if block_pattern is None else {"block_pattern": block_pattern}
-    model = dataclasses.replace(get_config(arch).model, n_layers=1,
-                                dtype="float32", **kind)
+    model = dataclasses.replace(get_config(arch).model, **{
+        "n_layers": 1, "dtype": "float32", **kind, **cfg_kw})
+    stub = not model.embed_inputs or bool(model.cross_attn_every)
     params = M.init(model, torch.Generator(device="cuda").manual_seed(3),
                     device="cpu")
+    if model.cross_attn_every:
+        set_cross_gates(torch, params)
     if shared is not None:
         if "embed" in shared:
             params.update(embed=shared["embed"], head=shared["head"])
@@ -1730,6 +2184,10 @@ def lm_pim_gpu_vs_cpu(torch, np, ops, arch, block_pattern=None,
     rng = np.random.default_rng(4)
     prompts = [rng.integers(0, model.vocab, n).astype(np.int64)
                for n in (48, 20)]
+    toks = []      # the CPU run's greedy tokens, which both runs decode
+    if stub:
+        x0, frames, img = stub_host_inputs(np, model, 2, 16, 2, seed=4)
+        prompts = list(x0)
     real, calls, logits, packed = pim_layers.quantized_matmul, [], {}, {}
     real_bank, bank_calls = bitserial.int_matmul_prepacked_bank, []
 
@@ -1743,6 +2201,47 @@ def lm_pim_gpu_vs_cpu(torch, np, ops, arch, block_pattern=None,
         bank_calls.append((qa.cpu(), w, a_bits, p.cpu()))
         return p
 
+    def run_slots(p, cfg, device):
+        st = M.init_state(cfg, LM_MAX_BATCH, 64, device)
+        out = []
+        for slot, prompt in enumerate(prompts):
+            pos = 0
+            for c in _pow2_chunks(len(prompt)):
+                lo, st = M.prefill_into_slot(
+                    p, cfg, torch.from_numpy(
+                        prompt[pos:pos + c])[None].to(device), st, slot, pos)
+                pos += c
+            out.append(lo[:, 0].cpu().numpy())
+        if device == "cpu":
+            toks.append(np.array([int(o.argmax()) for o in out] + [0] * (
+                LM_MAX_BATCH - len(out))))
+        for step in range(2):
+            lo, st = M.decode_step(p, cfg, torch.from_numpy(
+                toks[step])[:, None].to(device), st)
+            out.append(lo[:, 0].cpu().numpy())
+            if device == "cpu" and step == 0:
+                toks.append(out[-1].argmax(-1))
+        return out
+
+    def run_batch(p, cfg, device):
+        def conv(a):
+            return None if a is None else torch.from_numpy(a).to(device)
+
+        st = M.init_state(cfg, 2, 64, device)
+        image = conv(img)
+        lo, st = M.prefill(p, cfg, conv(x0), st, image_embeds=image)
+        out = [lo[:, 0].cpu().numpy()]
+        for step in range(2):
+            if frames is not None:
+                x = conv(frames[:, step:step + 1])
+            else:
+                if device == "cpu":
+                    toks.append(out[-1].argmax(-1).astype(np.int32))
+                x = conv(toks[step][:, None])
+            lo, st = M.decode_step(p, cfg, x, st, image_embeds=image)
+            out.append(lo[:, 0].cpu().numpy())
+        return out
+
     for device, backend in (("cpu", "int-direct"), ("cuda", "cuda")):
         cfg = dataclasses.replace(model, pim=PIMQuantConfig(
             8, 8, backend=backend))
@@ -1754,37 +2253,18 @@ def lm_pim_gpu_vs_cpu(torch, np, ops, arch, block_pattern=None,
             p = packed[device] = M.prepack_params(tree, cfg.pim)
             if device == "cpu" and shared is not None:
                 shared["head_cpu"] = p["head"]
-            del tree
-            st = M.init_state(cfg, LM_MAX_BATCH, 64, device)
-            out = []
             if device == "cuda":
+                card_tree = tree   # the card's float tree, jittered below
                 pim_layers.quantized_matmul = spy
                 bitserial.int_matmul_prepacked_bank = bank_spy
+            del tree
             try:
-                for slot, prompt in enumerate(prompts):
-                    pos = 0
-                    for c in _pow2_chunks(len(prompt)):
-                        lo, st = M.prefill_into_slot(
-                            p, cfg, torch.from_numpy(
-                                prompt[pos:pos + c])[None].to(device), st,
-                            slot, pos)
-                        pos += c
-                    out.append(lo[:, 0].cpu().numpy())
-                if device == "cpu":
-                    toks = [np.array([int(o.argmax()) for o in out] + [0] * (
-                        LM_MAX_BATCH - len(out)))]
-                for step in range(2):
-                    lo, st = M.decode_step(p, cfg, torch.from_numpy(
-                        toks[step])[:, None].to(device), st)
-                    out.append(lo[:, 0].cpu().numpy())
-                    if device == "cpu" and step == 0:
-                        toks.append(out[-1].argmax(-1))
+                out = (run_batch if stub else run_slots)(p, cfg, device)
             finally:
                 pim_layers.quantized_matmul = real
                 bitserial.int_matmul_prepacked_bank = real_bank
         logits[device] = out
         launches = ops.launch_counts()
-        del st
     leaves = dict(_packed_leaves(packed["cpu"]))
     gpu_leaves = dict(_packed_leaves(packed["cuda"]))
     if sorted(leaves) != sorted(gpu_leaves) or not leaves:
@@ -1820,28 +2300,57 @@ def lm_pim_gpu_vs_cpu(torch, np, ops, arch, block_pattern=None,
         if not torch.equal(p, want):
             raise AssertionError(f"<8:8> bank product on the card vs the "
                                  f"CPU: {tuple(qa.shape)} x {w.shape}")
-    rel_l2 = [float(np.max(np.linalg.norm(g - c, axis=-1)
-                           / np.linalg.norm(c, axis=-1)))
+    rel_l2 = [row_rel_l2(g, c)
               for g, c in zip(logits["cuda"], logits["cpu"])]
     scale = max(float(np.abs(c).max()) for c in logits["cpu"])
     err = max(float(np.abs(g - c).max())
               for g, c in zip(logits["cuda"], logits["cpu"]))
     missing = [k for k in LM_PATH_KERNELS[(arch, "<8:8> cuda")]
                if not launches[k]]
-    if max(rel_l2) > 0.1 or len(calls) != launches["bitserial_matmul_fused"] \
-            or len(bank_calls) != launches["bitserial_matmul_fused_batched"] \
-            or missing:
-        raise AssertionError(
-            f"{arch} <8:8> GPU vs CPU: logits relative L2 {rel_l2}, "
-            f"{len(calls)} products, launches {launches}")
+    # The card's own spread, printed beside the reading: its logits again
+    # with every float weight moved by 1e-6 relative (one draw); the path
+    # sits as far from the CPU as from itself under such a jitter. With
+    # cross layers, the card at gate 0 must be further from the CPU than
+    # the 0.1 the logits are held to.
+    run = run_batch if stub else run_slots
+    with torch.no_grad():
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        tree = M._map(lambda x: x * (1 + 1e-6 * torch.randn(
+            x.shape, generator=gen, device="cuda"))
+            if x.dtype == torch.float32 and x.dim() >= 2 else x, card_tree)
+        del card_tree
+        p = M.prepack_params(tree, cfg.pim)
+        del tree
+        jitter = max(row_rel_l2(g, c) for g, c in zip(
+            run(p, cfg, "cuda"), logits["cuda"]))
+        del p
+        gate_moves = None
+        if "cross_attn" in model.blocks:
+            p = set_cross_gates(torch, packed["cuda"], None)
+            gate_moves = min(float(np.min(
+                np.linalg.norm(g - c, axis=-1) / np.linalg.norm(c, axis=-1)))
+                for g, c in zip(run(p, cfg, "cuda"), logits["cpu"]))
+            del p
     label = arch if block_pattern is None else f"{arch} {block_pattern[0]}"
-    print(json.dumps(dict(gpu_vs_cpu=f"{label} <8:8> cuda", layers=1,
+    extra = dict(blocks=model.blocks, image_tokens=model.n_image_tokens,
+                 gate_0_rel_l2=gate_moves) if model.cross_attn_every else {}
+    print(json.dumps(dict(gpu_vs_cpu=f"{label} <8:8> cuda",
+                          layers=model.n_layers, **extra,
                           prompts=[len(x) for x in prompts], decode_steps=2,
-                          max_batch=LM_MAX_BATCH, packed_leaves=len(leaves),
+                          max_batch=2 if stub else LM_MAX_BATCH,
+                          packed_leaves=len(leaves),
                           products=len(calls), product_max_rel_err=call_err,
                           bank_products_equal=len(bank_calls),
-                          logits_rel_l2=rel_l2, max_abs_diff=err,
+                          logits_rel_l2=rel_l2, jitter_rel_l2=jitter,
+                          max_abs_diff=err,
                           max_abs_cpu=scale, launches=launches)), flush=True)
+    if max(rel_l2) > 0.1 or len(calls) != launches["bitserial_matmul_fused"] \
+            or len(bank_calls) != launches["bitserial_matmul_fused_batched"] \
+            or missing or (gate_moves is not None and gate_moves <= 0.1):
+        raise AssertionError(
+            f"{arch} <8:8> GPU vs CPU: logits relative L2 {rel_l2}, at "
+            f"gate 0 {gate_moves}, {len(calls)} products, launches "
+            f"{launches}")
 
 
 def backends_agree(torch, m, k, n, bits):
@@ -2094,7 +2603,7 @@ def main(argv) -> int:
         check_served_matmuls(np, kc, "recurrentgemma-9b", calls)
     del calls
 
-    # -- 7d. serving phi3.5-moe (16 experts, top-2) at 8 of its 32 layers ------
+    # -- 7d. serving phi3.5-moe (16 experts, top-2) at 4 of its 32 layers ------
     arch = dataclasses.replace(get_config(PHI).model, n_layers=PHI_LAYERS)
     with phase("serve phi3.5-moe bf16"), no_plain_pack():
         params = lm.init(arch, torch.Generator(device="cuda").manual_seed(0),
@@ -2118,6 +2627,39 @@ def main(argv) -> int:
         check_served_matmuls(np, kc, PHI, calls)
     del calls
 
+    # -- 7e. the stub frontends: musicgen-large (48 layers) and one unit of
+    # llama-3.2-vision-90b (4 attn + 1 cross_attn) at full width ---------------
+    for name, bf16_steps in ((MUSICGEN, 32), (VISION, 16)):
+        arch = dataclasses.replace(get_config(name).model,
+                                   n_layers=STUB_PATHS[name]["layers"])
+        with phase(f"serve {name} bf16"), no_plain_pack():
+            params = set_cross_gates(torch, lm.init(
+                arch, torch.Generator(device="cuda").manual_seed(0),
+                device="cuda"))
+            cast_in_place(torch, params, torch.bfloat16)
+            deployed, _ = serve_stub(torch, np, ops, arch, params, "bf16",
+                                     bf16_steps)
+            if arch.cross_attn_every:
+                cross_layer_costs(torch, arch, deployed, "bf16", kc.clock_hz)
+            del params, deployed
+            torch.cuda.empty_cache()
+        with phase(f"serve {name} <8:8> cuda"), no_plain_pack():
+            cfg = dataclasses.replace(arch, dtype="float32",
+                                      pim=PIMQuantConfig(8, 8, backend="cuda"))
+            params = set_cross_gates(torch, lm.init(
+                cfg, torch.Generator(device="cuda").manual_seed(0),
+                device="cuda"))
+            deployed, calls = serve_stub(torch, np, ops, cfg, params,
+                                         "<8:8> cuda", 16)
+            if cfg.cross_attn_every:
+                cross_layer_costs(torch, cfg, deployed, "<8:8> cuda",
+                                  kc.clock_hz)
+            del params, deployed
+            torch.cuda.empty_cache()
+        with phase(f"kernel 2 at {name}'s served matmuls"):
+            check_stub_matmuls(kc, name, calls)
+        del calls
+
     # -- 8. the LMs against the CPU's plain versions ---------------------------
     with phase("gpu vs cpu rwkv6-3b"):
         lm_gpu_vs_cpu(torch, np, ops, "rwkv6-3b")
@@ -2139,6 +2681,21 @@ def main(argv) -> int:
     with phase("gpu vs cpu phi3.5-moe"):
         lm_gpu_vs_cpu(torch, np, ops, PHI, n_layers=1)
         lm_pim_gpu_vs_cpu(torch, np, ops, PHI)
+    with phase("gpu vs cpu musicgen-large"):
+        stub_gpu_vs_cpu(torch, np, ops, MUSICGEN, n_layers=2)
+        lm_pim_gpu_vs_cpu(torch, np, ops, MUSICGEN)
+    with phase("gpu vs cpu llama-3.2-vision-90b"):
+        # attn then cross_attn at full width: all 6,400 image tokens in
+        # float32; 64 of them at <8:8> (the CPU's plain products at 6,400
+        # would take minutes), the cross layer alone and the two.
+        stub_gpu_vs_cpu(torch, np, ops, VISION, n_layers=2,
+                        cross_attn_every=1)
+        shared = {}
+        for kind, layers in ((("cross_attn",), 1), (None, 2)):
+            lm_pim_gpu_vs_cpu(torch, np, ops, VISION, block_pattern=kind,
+                              shared=shared, n_layers=layers,
+                              cross_attn_every=1, n_image_tokens=64)
+        del shared
 
     kernels = [
         summary(kc.rows, "bitplane_pack", launches["bitplane_pack"],

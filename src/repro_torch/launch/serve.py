@@ -11,7 +11,10 @@ local-attention hybrid ``recurrentgemma-9b``, or the MoE
 their published sizes: serve them ``--reduced``; random weights from a
 seed, the arch's dtype; with ``--precision '<W:I>'`` every projection and
 expert bank runs the paper's bit-serial pipeline in float32) through the
-continuous-batching ``ServeEngine``.
+continuous-batching ``ServeEngine``. The two archs fed by the stub
+frontends, ``musicgen-large`` and ``llama-3.2-vision-90b``, are refused,
+as the JAX package's launcher refuses them: they run through the model
+functions ``prefill`` and ``decode_step``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --workload cnn \
       --cnn-model resnet50 --image 224 --requests 16 --precision '<8:8>'
@@ -77,6 +80,9 @@ def serve_lm(args):
     device = resolve_device(args.device)
     cfg = get_config(args.arch).model
     cfg = cfg.reduced() if args.reduced else cfg
+    if not cfg.embed_inputs or cfg.cross_attn_every:
+        raise SystemExit("serve launcher drives token-in archs; "
+                         "musicgen/vlm need frontend-stub drivers (see examples)")
     bits = parse_precision(args.precision)
     if bits is not None:
         cfg = dataclasses.replace(cfg, dtype="float32", pim=PIMQuantConfig(

@@ -1,12 +1,14 @@
 """Grouped-query attention with the variants the ported archs need.
 
 Covers MHA/GQA/MQA (any kv:q ratio), QKV bias (qwen1.5), per-head qk_norm
-(qwen3), sliding-window local attention (recurrentgemma), attention-logit
-softcap (grok), and the shared prefill/decode code path driven by explicit
-position tensors. The paths are the self-attention with no cache
-(``forward``), against the full KV cache (prefill and decode), and against
-the ring buffer of a ``local_attn`` block (``ring``). Cross-attention comes
-with its block kind (``ROADMAP.md`` Queue 1, item 2).
+(qwen3), sliding-window local attention (recurrentgemma), cross-attention
+over stub image embeddings behind a zero-init tanh gate
+(llama-3.2-vision), attention-logit softcap (grok), and the shared
+prefill/decode code path driven by explicit position tensors. The paths
+are the self-attention with no cache (``forward``), against the full KV
+cache (prefill and decode), against the ring buffer of a ``local_attn``
+block (``ring``), and the cross-attention (``kv_src``) with its image cache
+or without.
 
 All projections route through :func:`repro_torch.core.pim_layers.
 pim_linear`, so an arch config with ``pim`` set executes every QKVO matmul
@@ -37,7 +39,8 @@ from .rwkv6 import randn
 NEG = -2.0**30
 
 
-def init_attention(cfg: ModelConfig, generator, device=None):
+def init_attention(cfg: ModelConfig, generator, device=None,
+                   cross: bool = False):
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     scale = d**-0.5
     p = {
@@ -57,6 +60,8 @@ def init_attention(cfg: ModelConfig, generator, device=None):
     if cfg.qk_norm:
         p["q_norm"] = const(hd, 1.0)
         p["k_norm"] = const(hd, 1.0)
+    if cross:   # the cross-attention gate (llama-vision's zero-init tanh)
+        p["gate"] = torch.zeros((), dtype=torch.float32, device=device)
     return p
 
 
@@ -160,6 +165,25 @@ def _ring_attend(cache: dict, k, v, q_pos, cache_index, window: int):
     return k, v, mask
 
 
+def _cross_write(cache: dict, k, v, cache_index):
+    """The cross branch's cache: each sequence whose ``cache_index`` is 0
+    (its first prefill; every sequence when the index is None) takes the
+    new image keys and values, in place, and every other keeps its own.
+    Chosen on the device (``torch.where``), with no read to the host.
+    Returns the (k, v) to attend over."""
+    b = k.shape[0]
+    if cache_index is None:
+        write = torch.ones((b,), dtype=torch.bool, device=k.device)
+    else:
+        write = torch.as_tensor(cache_index, device=k.device).reshape(
+            -1).expand(b) == 0
+    write = write.reshape(b, 1, 1, 1)
+    for name, new in (("k", k), ("v", v)):
+        cache[name].copy_(torch.where(write, new.to(cache[name].dtype),
+                                      cache[name]))
+    return cache["k"], cache["v"]
+
+
 def attention(p, cfg: ModelConfig, x: torch.Tensor, q_pos: torch.Tensor,
               kv_src=None, cache: dict | None = None, cache_index=None,
               window: int = 0, ring: bool = False):
@@ -170,26 +194,39 @@ def attention(p, cfg: ModelConfig, x: torch.Tensor, q_pos: torch.Tensor,
     the new keys and values are written into it in place at
     ``cache_index`` (B,) and the queries attend over its first
     ``cache_index + Sq`` rows; with ``ring`` the cache is a ring buffer of
-    the last ``w`` tokens (:func:`_ring_attend`)."""
-    if kv_src is not None:
-        raise NotImplementedError(
-            "cross-attention is not ported yet (ROADMAP.md Queue 1, item 2: "
-            "the stub frontends and cross-attention)")
+    the last ``w`` tokens (:func:`_ring_attend`).
+
+    With ``kv_src`` (B, Skv, d), the image embeddings, this is
+    cross-attention: keys and values are projected from ``kv_src`` at
+    every call, without RoPE, and every query attends to every image
+    token; with ``cache``, the projection is kept only where
+    ``cache_index`` is 0 (:func:`_cross_write`), as the JAX package does.
+    A ``gate`` in ``p`` scales the output by ``tanh(gate)``."""
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     b, sq, _ = x.shape
     pim = cfg.pim
+    kv_in = x if kv_src is None else kv_src
+    skv = kv_in.shape[1]
 
     q = pim_linear(x, p["wq"], p.get("bq"), cfg=pim).reshape(b, sq, hq, hd)
-    k = pim_linear(x, p["wk"], p.get("bk"), cfg=pim).reshape(b, sq, hkv, hd)
-    v = pim_linear(x, p["wv"], p.get("bv"), cfg=pim).reshape(b, sq, hkv, hd)
+    k = pim_linear(kv_in, p["wk"], p.get("bk"), cfg=pim).reshape(
+        b, skv, hkv, hd)
+    v = pim_linear(kv_in, p["wv"], p.get("bv"), cfg=pim).reshape(
+        b, skv, hkv, hd)
     if cfg.qk_norm:
         q = qk_head_norm(p["q_norm"], q, cfg.norm_eps)
         k = qk_head_norm(p["k_norm"], k, cfg.norm_eps)
-    q = apply_rope(q, q_pos, cfg.rope_theta)
-    k = apply_rope(k, q_pos, cfg.rope_theta)
+    if kv_src is None:   # RoPE only for self-attention
+        q = apply_rope(q, q_pos, cfg.rope_theta)
+        k = apply_rope(k, q_pos, cfg.rope_theta)
 
     scales = {}
-    if cache is not None and ring:
+    if kv_src is not None:
+        if cache is not None:
+            k, v = _cross_write(cache, k, v, cache_index)
+        mask = torch.ones((b, 1, sq, k.shape[1]), dtype=torch.bool,
+                          device=x.device)   # every image token
+    elif cache is not None and ring:
         k, v, mask = _ring_attend(cache, k, v, q_pos, cache_index, window)
     elif cache is not None:
         cache = C.update_kv_cache(cache, k, v, cache_index)
@@ -208,4 +245,6 @@ def attention(p, cfg: ModelConfig, x: torch.Tensor, q_pos: torch.Tensor,
     o = gqa_scores_softmax_v(q, k, v, mask, softcap=cfg.attn_softcap,
                              **scales)
     out = pim_linear(o.reshape(b, sq, hq * hd), p["wo"], cfg=pim)
+    if "gate" in p:   # the zero-init cross-attention gate
+        out = torch.tanh(p["gate"]).to(out.dtype) * out
     return out, cache

@@ -11,9 +11,10 @@ update writes only the new rows, in place, at each sequence's own offset.
 rows, always float (even with ``kv_quant``): decode writes slot ``index %
 window`` in place. RWKV and RG-LRU keep O(1) decode state: the (H, D, D)
 WKV matrix and the two token-shift vectors, or the RG-LRU's last
-``conv1d_width - 1`` conv inputs and its float32 carry ``h``. The
-cross-attention cache comes with its block kind (``ROADMAP.md`` Queue 1,
-item 2).
+``conv1d_width - 1`` conv inputs and its float32 carry ``h``. A
+``cross_attn`` block keeps the image keys and values, ``n_image_tokens``
+rows, always float (even with ``kv_quant``): they are written once, at a
+sequence's first prefill, and read at every later step.
 """
 from __future__ import annotations
 
@@ -131,7 +132,8 @@ def init_rwkv_state(cfg: ModelConfig, batch: int, device=None):
 
 
 def init_layer_state(kind: str, cfg: ModelConfig, batch: int, max_len: int,
-                     device=None, dtype=torch.bfloat16):
+                     device=None, dtype=torch.bfloat16,
+                     n_image_tokens: int = 0):
     if kind == "attn":
         return init_kv_cache(cfg, batch, max_len, dtype=dtype, device=device)
     if kind == "local_attn":
@@ -143,10 +145,9 @@ def init_layer_state(kind: str, cfg: ModelConfig, batch: int, max_len: int,
     if kind == "rwkv":
         return init_rwkv_state(cfg, batch, device)
     if kind == "cross_attn":
-        raise NotImplementedError(
-            "decode state of block kind 'cross_attn' is not ported yet "
-            "(ROADMAP.md Queue 1, item 2: the stub frontends and "
-            "cross-attention)")
+        # image KV is written once and reused: quantization buys nothing
+        return init_kv_cache(cfg, batch, n_image_tokens or cfg.n_image_tokens,
+                             dtype=dtype, device=device, force_float=True)
     raise ValueError(kind)
 
 

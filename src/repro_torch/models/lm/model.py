@@ -14,15 +14,22 @@ Entry points:
                                                   ``return_stats``)
   ``prefill_into_slot(params, cfg, tokens, state, slot, start_pos)``
 
+``tokens`` are (B, S) ids, or (B, S, d_model) frame embeddings where
+``cfg.embed_inputs`` is False (musicgen, from the stub frontend). The first
+three take ``image_embeds`` (B, n_image_tokens, d_model), the stub
+frontend's patch embeddings that every ``cross_attn`` block attends to
+(llama-3.2-vision); a model with cross blocks raises ``ValueError``
+without them.
+
 State updates are in place: ``prefill`` and ``decode_step`` write each
 layer's new carries into the stacked state tensors they were given (and
 return the same dict), and an ``attn`` or ``local_attn`` layer writes only
 its new KV rows (into the ring buffer for ``local_attn``), so a decode
-step allocates no second copy of the (max_batch, ...) state. The ``attn``
-(dense decoder), ``local_attn`` and ``rglru`` (the recurrentgemma hybrid)
-and ``rwkv`` block kinds are ported, each ``attn``, ``local_attn`` or
-``rglru`` block with a dense or an MoE FFN (``cfg.moe``: grok-1,
-phi3.5-moe); ``cross_attn`` raises ``NotImplementedError``.
+step allocates no second copy of the (max_batch, ...) state. The block
+kinds are the JAX package's: ``attn`` (dense decoder), ``local_attn`` and
+``rglru`` (the recurrentgemma hybrid), ``cross_attn`` (llama-3.2-vision)
+and ``rwkv``, each but ``rwkv`` with a dense or an MoE FFN (``cfg.moe``:
+grok-1, phi3.5-moe).
 """
 from __future__ import annotations
 
@@ -72,28 +79,19 @@ def layer_plan(cfg: ModelConfig) -> tuple[tuple, int, tuple]:
 # Per-block init / apply
 # ---------------------------------------------------------------------------
 
-_ATTN_KINDS = ("attn", "local_attn")
+_ATTN_KINDS = ("attn", "local_attn", "cross_attn")
 _FFN_KINDS = _ATTN_KINDS + ("rglru",)
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue 1, item 2: the stub "
-        "frontends and cross-attention); the port runs 'attn', "
-        "'local_attn', 'rglru' (with a dense or an MoE FFN) and 'rwkv'")
-
-
-def _check_ported(kind: str):
-    if kind not in _FFN_KINDS + ("rwkv",):
-        raise _not_ported(f"block kind {kind!r}")
+_KINDS = _FFN_KINDS + ("rwkv",)
 
 
 def init_block(kind: str, cfg: ModelConfig, generator, device=None):
-    _check_ported(kind)
+    if kind not in _KINDS:
+        raise ValueError(kind)
     d = cfg.d_model
     p = {"norm1": init_norm(cfg.norm, d, device)}
     if kind in _ATTN_KINDS:
-        p["attn"] = A.init_attention(cfg, generator, device)
+        p["attn"] = A.init_attention(cfg, generator, device,
+                                     cross=kind == "cross_attn")
         if cfg.post_attn_norm:
             p["norm_post"] = init_norm(cfg.norm, d, device)
     elif kind == "rglru":
@@ -118,16 +116,24 @@ def _zero_aux(device) -> dict:
 
 
 def apply_block(kind: str, p, cfg: ModelConfig, x, q_pos=None, state=None,
-                cache_index=None, aux=None):
+                cache_index=None, image_embeds=None, aux=None):
     """Pre-norm residual block. Returns (x, new_state).
 
     ``q_pos`` (B, S) int32 and ``cache_index`` (B,) are the positions an
     attention block needs (the recurrent blocks ignore them); a ``local_attn``
     block attends within ``cfg.local_window`` and keeps its ring buffer in
-    ``state``. A cache comes back as ``state`` itself, written in place.
-    An MoE FFN adds its aux values (``_zero_aux``'s keys) into the ``aux``
-    dict where one is given."""
-    _check_ported(kind)
+    ``state``; a ``cross_attn`` block attends to ``image_embeds`` and keeps
+    their keys and values in ``state``. A cache comes back as ``state``
+    itself, written in place. An MoE FFN adds its aux values
+    (``_zero_aux``'s keys) into the ``aux`` dict where one is given.
+
+    A ``cross_attn`` block without ``image_embeds`` raises ``ValueError``:
+    the JAX package then runs it as self-attention over its image cache."""
+    if kind not in _KINDS:
+        raise ValueError(kind)
+    if kind == "cross_attn" and image_embeds is None:
+        raise ValueError("a cross_attn block needs image_embeds (the stub "
+                         "frontend's patch embeddings) at every call")
     h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
     if kind in _FFN_KINDS:
         if kind == "rglru":
@@ -135,8 +141,9 @@ def apply_block(kind: str, p, cfg: ModelConfig, x, q_pos=None, state=None,
         else:
             local = kind == "local_attn"
             y, new_inner = A.attention(
-                p["attn"], cfg, h, q_pos, cache=state,
-                cache_index=cache_index,
+                p["attn"], cfg, h, q_pos,
+                kv_src=image_embeds if kind == "cross_attn" else None,
+                cache=state, cache_index=cache_index,
                 window=cfg.local_window if local else 0,
                 ring=local and state is not None)
             if cfg.post_attn_norm:
@@ -306,7 +313,7 @@ def _write(dst: dict, src: dict):
 
 
 def _run_blocks(params, cfg: ModelConfig, x, q_pos, states=None,
-                cache_index=None):
+                cache_index=None, image_embeds=None):
     """Apply the full block schedule; ``states`` (prefill/decode) is
     updated in place. Returns (x, aux): the MoE aux values summed over the
     layers (``_zero_aux``), or None for a model without MoE."""
@@ -316,13 +323,13 @@ def _run_blocks(params, cfg: ModelConfig, x, q_pos, states=None,
         for j, kind in enumerate(unit):
             s = _rep(states["scan"][j], r) if states is not None else None
             x, ns = apply_block(kind, _rep(params["scan"][j], r), cfg, x,
-                                q_pos, s, cache_index, aux)
+                                q_pos, s, cache_index, image_embeds, aux)
             if states is not None:
                 _write(s, ns)
     for i, kind in enumerate(rest):
         s = states["rest"][i] if states is not None else None
         x, ns = apply_block(kind, params["rest"][i], cfg, x, q_pos, s,
-                            cache_index, aux)
+                            cache_index, image_embeds, aux)
         if states is not None:
             _write(s, ns)
     return x, aux
@@ -342,14 +349,14 @@ def lm_head(params, cfg: ModelConfig, x):
     return logits
 
 
-def forward(params, cfg: ModelConfig, tokens):
+def forward(params, cfg: ModelConfig, tokens, image_embeds=None):
     """Full-sequence forward. Returns (logits (B, S, V) float32, aux loss):
     the MoE balance + z loss summed over the layers, 0 without MoE."""
     x = embed_inputs(params, cfg, tokens)
     b, s = x.shape[:2]
     q_pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(
         b, s)
-    x, aux = _run_blocks(params, cfg, x, q_pos)
+    x, aux = _run_blocks(params, cfg, x, q_pos, image_embeds=image_embeds)
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     loss = aux["loss"] if aux is not None else torch.zeros((),
                                                            device=x.device)
@@ -365,11 +372,14 @@ def _positions(state, b: int, s: int):
     return idx, q_pos
 
 
-def decode_step(params, cfg: ModelConfig, tokens, state,
+def decode_step(params, cfg: ModelConfig, tokens, state, image_embeds=None,
                 return_stats: bool = False):
-    """One decode step. tokens (B, 1) -> (logits (B, 1, V), state), the
-    state updated in place. ``state["length"]`` is (B,): every slot of a
-    continuous-batching grid decodes at its own position.
+    """One decode step. tokens (B, 1) (or (B, 1, d) embeddings) ->
+    (logits (B, 1, V), state), the state updated in place.
+    ``state["length"]`` is (B,): every slot of a continuous-batching grid
+    decodes at its own position. A model with ``cross_attn`` blocks takes
+    the same ``image_embeds`` at every step (its image cache was written at
+    the first prefill).
 
     ``return_stats`` appends the step's telemetry, ``{"moe_drop_frac": the
     fraction of this step's top-k assignments dropped at capacity,
@@ -377,7 +387,7 @@ def decode_step(params, cfg: ModelConfig, tokens, state,
     the device."""
     x = embed_inputs(params, cfg, tokens)
     idx, q_pos = _positions(state, x.shape[0], 1)
-    x, aux = _run_blocks(params, cfg, x, q_pos, state, idx)
+    x, aux = _run_blocks(params, cfg, x, q_pos, state, idx, image_embeds)
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     logits = lm_head(params, cfg, x)
     state["length"] += 1
@@ -388,12 +398,13 @@ def decode_step(params, cfg: ModelConfig, tokens, state,
                            / aux["layers"].clamp_min(1.0)}
 
 
-def prefill(params, cfg: ModelConfig, tokens, state):
+def prefill(params, cfg: ModelConfig, tokens, state, image_embeds=None):
     """Run a whole prompt through the model, filling the decode state in
-    place. Returns the last token's logits (B, 1, V)."""
+    place (a sequence at length 0 also writes its image keys and values).
+    Returns the last token's logits (B, 1, V)."""
     x = embed_inputs(params, cfg, tokens)
     idx, q_pos = _positions(state, *x.shape[:2])
-    x, _ = _run_blocks(params, cfg, x, q_pos, state, idx)
+    x, _ = _run_blocks(params, cfg, x, q_pos, state, idx, image_embeds)
     x = apply_norm(cfg.norm, params["final_norm"], x[:, -1:], cfg.norm_eps)
     logits = lm_head(params, cfg, x)
     state["length"] += tokens.shape[1]

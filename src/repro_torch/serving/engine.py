@@ -107,6 +107,11 @@ class ServeEngine:
             tuning_cache=tuning_cache is not None,
             pipeline_stages=pipeline_stages != 1,
             pipeline_microbatches=pipeline_microbatches is not None))
+        if not cfg.embed_inputs or cfg.cross_attn_every:
+            raise ValueError(
+                f"ServeEngine serves token-in archs; {cfg.name} takes stub "
+                "frontend embeddings (drive it through prefill and "
+                "decode_step, as the JAX package runs them)")
         self.device = resolve_device(device)
         disable_tf32()
         self.cfg = cfg
@@ -226,6 +231,13 @@ class ServeEngine:
                 self._cancelled.add(rid)
                 return "active"
         return None
+
+    @property
+    def n_free_slots(self) -> int:
+        """Slots an admission could land in right now: free grid slots not
+        already spoken for by queued requests (the JAX engine's property,
+        which its gateway admits through)."""
+        return max(0, len(self._free_slots()) - len(self.queue))
 
     def _release_cancelled(self):
         """Free cancelled slots at a token boundary: clear the host slot and

@@ -224,3 +224,40 @@ def moe_params(jcfg, seed=0):
     jp = jax.device_get(jax.jit(jM.init, static_argnums=0)(
         jcfg, jax.random.PRNGKey(seed)))
     return jp, convert.params_from_jax(jp)
+
+
+STUB_ARCHS = ("musicgen-large", "llama-3.2-vision-90b")
+
+
+def stub_cfgs(arch, **kw):
+    """The reduced stub-frontend ``arch`` (float32 unless ``dtype`` is
+    given) in both packages: (JAX, port)."""
+    import dataclasses
+
+    from repro.configs import get_config as jget_config
+    from repro_torch.configs import get_config
+
+    kw = {"dtype": "float32", **kw}
+    return tuple(dataclasses.replace(g(arch).model.reduced(), **kw)
+                 for g in (jget_config, get_config))
+
+
+def stub_params(jcfg, seed=0, gate=0.7):
+    """JAX init of ``jcfg`` from PRNGKey(seed) as numpy, with every
+    cross-attention gate (0 at init, which zeroes the branch) set to
+    ``gate`` plus 0.1 a rep, so that the branch counts and the reps
+    differ; and the same tree carried to the port: (JAX tree, port
+    tree)."""
+    import jax
+
+    from repro.models.lm import model as jM
+    from repro_torch import convert
+
+    jp = jax.device_get(jax.jit(jM.init, static_argnums=0)(
+        jcfg, jax.random.PRNGKey(seed)))
+    for blk in jp["scan"] + jp["rest"]:
+        a = blk.get("attn", {})
+        if "gate" in a:
+            g = gate + 0.1 * np.arange(a["gate"].size, dtype=np.float32)
+            a["gate"] = g.reshape(a["gate"].shape).astype(np.float32)
+    return jp, convert.params_from_jax(jp)

@@ -109,6 +109,24 @@ def test_matmul_kernel_equals_plain(gen, m, k, n, bits):
                                                        bits))
 
 
+@pytest.mark.parametrize("m,k,n", [
+    # musicgen-large at a decode step of 4 frames: wq, wk, wv, wo and the
+    # head (2,048 codes), w_in, w_out
+    *[(4, k, n) for k, n in ((2048, 2048), (2048, 8192), (8192, 2048))],
+    # llama-3.2-vision-90b at a decode step: wq / wo, wk / wv, w_in /
+    # w_gate, w_out and the untied head
+    *[(1, k, n) for k, n in ((8192, 8192), (8192, 1024), (8192, 28672),
+                             (28672, 8192), (8192, 128256))],
+    (6400, 8192, 1024)])   # a cross layer's wk / wv on one image's patches
+def test_matmul_kernel_at_the_stub_frontend_archs_shapes(gen, m, k, n):
+    """Kernel 2 at the new K x N of musicgen-large and the vision arch,
+    the cross call at M = 6,400 included: equal to the plain version."""
+    qa = _codes(gen, (m, k), 8)
+    pw = prepack(torch.randn((k, n), generator=gen, device="cuda"), 8).planes
+    assert torch.equal(km.bitserial_matmul_fused(qa, pw, 8, 8),
+                       km.bitserial_matmul_fused_plain(qa, pw, 8, 8))
+
+
 @pytest.mark.parametrize("m,kw,n", [
     (8, 2, 192), (8, 2, 320),     # the Pallas bn % 128 != 0 regression shapes
     (8, 288, 4096),               # AlexNet fc1, a bucket of 8

@@ -214,14 +214,19 @@ def test_gqa_core_fully_masked_row_is_uniform():
 
 
 def test_attention_later_kinds_raise():
-    """Cross-attention raises, naming its queue item; the ring branch of
-    local attention runs (``tests/test_torch_ring_cache.py``)."""
+    """Cross-attention runs on ``kv_src`` (``tests/test_torch_cross_attn.py``
+    holds it against the JAX package), and a ``cross_attn`` block without
+    image embeddings raises ``ValueError``; the ring branch of local
+    attention runs (``tests/test_torch_ring_cache.py``)."""
     jc, tc = dense_cfgs("llama3.2-3b")
     p = A.init_attention(tc, torch.Generator().manual_seed(0))
     x = torch.zeros((1, 2, tc.d_model))
     pos = torch.zeros((1, 2), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-        A.attention(p, tc, x, pos, kv_src=x)
+    out, none = A.attention(p, tc, x, pos, kv_src=torch.ones(1, 5, tc.d_model))
+    assert out.shape == x.shape and none is None
+    blk = M.init_block("cross_attn", tc, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="image_embeds"):
+        M.apply_block("cross_attn", blk, tc, x, pos)
     ring = C.init_ring_cache(tc, 1, 4, dtype=torch.float32)
     out, got = A.attention(p, tc, x, pos, cache=ring,
                            cache_index=torch.zeros(1, dtype=torch.int32),
@@ -348,19 +353,24 @@ def test_params_from_jax_carries_the_dense_tree(dense, arch):
 
 def test_moe_and_later_block_kinds_raise():
     """An MoE FFN builds in every FFN block kind (ported with grok-1 and
-    phi3.5-moe); cross-attention still raises."""
+    phi3.5-moe), the cross-attention's too, as the JAX package builds it;
+    a kind the JAX package does not have raises ``ValueError``."""
     jc, tc = dense_cfgs("llama3.2-3b")
     from repro_torch.models.lm import MoEConfig
 
     moe = dataclasses.replace(tc, moe=MoEConfig(n_experts=4, top_k=2))
-    for kind in ("attn", "local_attn", "rglru"):
+    for kind in ("attn", "local_attn", "rglru", "cross_attn"):
         moe_k = dataclasses.replace(moe, block_pattern=(kind,))
         p = M.init(moe_k, torch.Generator().manual_seed(0), device="cpu")
         ffn = p["scan"][0]["ffn"]
         assert ffn["router"].shape == (moe_k.n_layers, tc.d_model, 4)
         assert ffn["w_in"].shape == (moe_k.n_layers, 4, tc.d_model, tc.d_ff)
-    cross = dataclasses.replace(tc, block_pattern=("cross_attn",))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-        M.init_state(cross, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-        M.init(cross, torch.Generator().manual_seed(0), device="cpu")
+    cross = dataclasses.replace(tc, block_pattern=("cross_attn",),
+                                n_image_tokens=6)
+    st = M.init_state(cross, 1, 8, device="cpu")
+    assert st["scan"][0]["k"].shape[:3] == (cross.n_layers, 1, 6)
+    other = dataclasses.replace(tc, block_pattern=("mamba",))
+    with pytest.raises(ValueError, match="mamba"):
+        M.init_state(other, 1, 8, device="cpu")
+    with pytest.raises(ValueError, match="mamba"):
+        M.init(other, torch.Generator().manual_seed(0), device="cpu")

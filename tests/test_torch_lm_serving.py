@@ -312,9 +312,13 @@ def test_launcher_serves_lm_on_cpu_when_asked(capsys):
     assert out[-1].startswith("2 completions, 6 tokens in")
 
 
-def test_launcher_refuses_unported_arch():
-    with pytest.raises(SystemExit):
-        tserve.main(["--workload", "lm", "--arch", "musicgen-large",
+@pytest.mark.parametrize("arch", ["musicgen-large", "llama-3.2-vision-90b"])
+def test_launcher_refuses_unported_arch(arch):
+    """The archs fed by the stub frontends are refused with the JAX
+    package's launcher's words (they run through the model functions)."""
+    with pytest.raises(SystemExit, match="musicgen/vlm need frontend-stub "
+                                         "drivers"):
+        tserve.main(["--workload", "lm", "--arch", arch, "--reduced",
                      "--device", "cpu"])
 
 

@@ -34,9 +34,12 @@ _SMOKE = _smoke()
 # The served LMs' <8:8> calls of kernel 2, which the smoke records and
 # holds on the card.
 _SERVED_LM = {shape for arch, head in _SMOKE.LM_HEADS.items()
+              if arch not in _SMOKE.STUB_PATHS
               for shape in _SMOKE.served_lm_matmuls(
                   _SMOKE.LM_PROJ_SHAPES[arch], head,
                   [len(p) for p in _SMOKE.lm_prompts(np, head[1])])}
+_SERVED_LM |= {shape for arch in _SMOKE.STUB_PATHS
+               for shape in _SMOKE.stub_path_matmuls(arch)}
 _SHAPES = sorted({(m, k, n) for m, k, n, *_ in
                   _SMOKE.FUSED_ROWS + _SMOKE.PACKED_ROWS}
                  | {_SMOKE.WRAP_ROW} | _SERVED_LM)
@@ -193,3 +196,59 @@ def test_served_lm_matmuls_are_the_engines_calls(arch):
     assert got == (_SMOKE.served_bank_matmuls(cfg, lens) if cfg.moe else [])
     if cfg.moe:    # capacity 24 at 32-token chunks, 16 at 16, 8 below
         assert {m for _, m, _, _ in got} == {8, 16, 24}
+
+
+@pytest.mark.parametrize("arch", ["musicgen-large", "llama-3.2-vision-90b"])
+def test_served_stub_matmuls_are_the_model_functions_calls(arch):
+    """``arch`` reduced, <8:8> on "cuda" (the plain versions on the CPU),
+    driven as the smoke drives it on the card (a batch prefill of two
+    prompts of 8 frames or tokens, then three decode steps, one image a row
+    at every call): the kernel-2 calls the smoke's ``recorded_matmuls``
+    keeps are ``served_stub_matmuls`` of the projections, the head and,
+    for the vision arch, the cross layers' wk / wv on the image tokens;
+    and at the card's paths ``stub_path_matmuls`` lists each projection
+    shape of ``LM_PROJ_SHAPES``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import PIMQuantConfig
+    from repro_torch.models.lm import model as M
+
+    cfg = dataclasses.replace(get_config(arch).model.reduced(),
+                              dtype="float32",
+                              pim=PIMQuantConfig(8, 8, backend="cuda"))
+    params = M.prepack_params(M.init(cfg, torch.Generator().manual_seed(0),
+                                     device="cpu"), cfg.pim)
+    rng = np.random.default_rng(1)
+    d, b, s = cfg.d_model, 2, 8
+    img = None
+    if cfg.embed_inputs:
+        x = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)))
+        img = torch.randn(b, cfg.n_image_tokens, d)
+    else:
+        x = torch.randn(b, s, d)
+    st = M.init_state(cfg, b, 32, device="cpu")
+    with _SMOKE.recorded_matmuls() as rec, torch.no_grad():
+        lo, st = M.prefill(params, cfg, x, st, image_embeds=img)
+        for _ in range(3):
+            nxt = lo[:, -1].argmax(-1)[:, None] if cfg.embed_inputs \
+                else torch.randn(b, 1, d)
+            lo, st = M.decode_step(params, cfg, nxt, st, image_embeds=img)
+    head = (d, cfg.vocab)
+    proj = {w.shape for _, w in _SMOKE._packed_leaves(params)} - {head}
+    hkv = cfg.n_kv_heads * cfg.head_dim
+    cross = (d, hkv) if cfg.cross_attn_every else None
+    got = sorted((qa.shape[0], qa.shape[1], pw.shape[1])
+                 for qa, pw, _ in rec.calls.values())
+    assert got == _SMOKE.served_stub_matmuls(proj, head, b, s, cross,
+                                             cfg.n_image_tokens)
+    assert not rec.bank_calls
+    full = get_config(arch).model
+    assert set(_SMOKE.LM_PROJ_SHAPES[arch]) == {
+        (full.d_model, full.n_heads * full.head_dim),
+        (full.d_model, full.n_kv_heads * full.head_dim),
+        (full.n_heads * full.head_dim, full.d_model),
+        (full.d_model, full.d_ff), (full.d_ff, full.d_model)}
+    assert _SMOKE.LM_HEADS[arch] == (full.d_model, full.vocab)

@@ -25,7 +25,7 @@ from repro.models.lm import model as jM
 from repro.models.lm import norms as jnorms
 from repro.models.lm import rwkv6 as jRW
 from repro_torch import convert
-from repro_torch.configs import ARCH_IDS, NOT_PORTED, SHAPES, get_config
+from repro_torch.configs import ARCH_IDS, SHAPES, get_config
 from repro_torch.core import PIMQuantConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels import rwkv_chunk as K
@@ -345,11 +345,17 @@ def test_bf16_model_close_to_jax(reduced):
 
 
 def test_other_block_kinds_raise_until_ported():
-    _, tc = _cfgs(block_pattern=("cross_attn",))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        M.init(tc, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        M.init_state(tc, 1, 8, device="cpu")
+    """Every block kind of the JAX package is ported (``cross_attn`` was
+    the last); a kind it does not have raises ``ValueError``, as there."""
+    _, tc = _cfgs(block_pattern=("cross_attn",), n_image_tokens=4)
+    p = M.init(tc, torch.Generator().manual_seed(0), device="cpu")
+    assert "gate" in p["scan"][0]["attn"]
+    assert M.init_state(tc, 1, 8, device="cpu")["scan"][0]["k"].shape[2] == 4
+    _, bad = _cfgs(block_pattern=("mamba",))
+    with pytest.raises(ValueError, match="mamba"):
+        M.init(bad, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match="mamba"):
+        M.init_state(bad, 1, 8, device="cpu")
 
 
 # -- configs and conversion --------------------------------------------------------
@@ -370,16 +376,18 @@ def test_rwkv6_3b_config_matches_jax():
 
 
 def test_registry_lists_only_ported_archs():
+    """All ten archs of the JAX registry are ported, each with the JAX
+    package's config."""
     from repro.configs import ARCH_IDS as JARCH_IDS
 
     assert ARCH_IDS == ("llama3.2-3b", "qwen1.5-4b", "qwen3-0.6b",
                         "granite-3-2b", "rwkv6-3b", "recurrentgemma-9b",
-                        "phi3.5-moe-42b-a6.6b", "grok-1-314b")
-    assert NOT_PORTED == ("musicgen-large", "llama-3.2-vision-90b")
-    assert sorted(ARCH_IDS + NOT_PORTED) == sorted(JARCH_IDS)
-    for arch in NOT_PORTED:
-        with pytest.raises(KeyError, match="not ported yet"):
-            get_config(arch)
+                        "phi3.5-moe-42b-a6.6b", "grok-1-314b",
+                        "musicgen-large", "llama-3.2-vision-90b")
+    assert sorted(ARCH_IDS) == sorted(JARCH_IDS) and len(ARCH_IDS) == 10
+    for arch in ARCH_IDS:
+        assert dataclasses.asdict(get_config(arch).model) == \
+            dataclasses.asdict(jget_config(arch).model)
     with pytest.raises(KeyError, match="unknown"):
         get_config("gpt-5")
 
