@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-rows   # build, then kernels 1 and 5's
                                           # timed rows only
+    python3 chip_smoke.py --autotune      # build, then phase 9 only
 
 Run from the root of a checkout on a machine with an NVIDIA H100 and the
 CUDA toolkit (``nvcc`` with sm_90a). It imports nothing of JAX or of the
@@ -202,6 +203,33 @@ failed phase, without a GPU, or outside a checkout.
    the card's logits at gate 0 must be further from the CPU's than 1e-2
    of max|cpu| (float32) or 0.1 in relative L2 (<8:8>). The vision <8:8> prompts are 16 tokens: at 48, the two layers'
    reading came near the gate, and so did the card's own spread.
+
+9. The autotuner (``repro_torch.pim.autotune``). The backend grid:
+   ``AUTOTUNE_SHAPES`` (benchmarks/autotune_bench.py's five) at <2:2>,
+   <4:4> and <8:8>; at each GEMM every candidate (the four backends, and
+   kernel 2 at each legalized tile request) gives the same P, held with
+   ``torch.equal`` to int-direct's and to kernel 2's plain version; each
+   is timed (``measure_gemm``, CUDA events); one JSON line a GEMM with each
+   backend's ms, the fastest, the cost-mode pick under the committed
+   "cuda" rates and the measure-mode pick with their regrets. The served
+   convs' GEMMs (``autotune_conv_grid``: each distinct conv GEMM of
+   ResNet-50 and AlexNet at buckets 8 and 4, the library backends' P
+   equal, each timed at the rows served and priced at the engine's
+   ``conv_m_hint``), then a summary line with the match counts and the
+   rates fitted on both (``fit_cuda_rates``). Then AlexNet and ResNet-50
+   (224 px, <8:8>, 12 requests in buckets 8 + 4) through
+   ``VisionEngine(backend="cuda")`` untuned and with
+   ``autotune="measure"`` on a cache file: logits equal bit for bit, the
+   picks, img/s and a profiled bucket of each (an
+   ``autotune_slower_than_untuned`` line where the tuned bucket takes
+   more device ms), and a second engine on the file calling
+   ``measure_gemm`` 0 times with the same decisions; then llama3.2-3b
+   <8:8> at ``LLAMA_LAYERS`` through ``ServeEngine`` untuned and with
+   ``autotune="measure"``: equal tokens, a 256-token prefill's logits
+   ``torch.equal`` (two untuned prefills held equal first), tok/s and the
+   picks. Each tuned path's timed run has its launch counts set to 0 just
+   before it and read just after, and each kernel a dispatched decision
+   names must have launched.
 
 Kernel 5 (the chunked WKV) is float32 arithmetic that sums in another
 order than its plain version, so it is held to the reference's tolerances
@@ -2111,10 +2139,11 @@ def cast_in_place(torch, tree, dtype):
 
 
 def _packed_leaves(tree, path=""):
-    """(path, PackedWeight) of every prepacked leaf of an LM tree."""
-    from repro_torch.core.packed import PackedWeight
+    """(path, leaf) of every prepacked leaf (PackedWeight, or a CNN's
+    PackedConvWeight) of a tree."""
+    from repro_torch.core.packed import PackedConvWeight, PackedWeight
 
-    if isinstance(tree, PackedWeight):
+    if isinstance(tree, (PackedWeight, PackedConvWeight)):
         yield path, tree
     elif isinstance(tree, dict):
         for k, v in tree.items():
@@ -2374,9 +2403,602 @@ def backends_agree(torch, m, k, n, bits):
                           bits=f"<{bits}:{bits}>")), flush=True)
 
 
+# The autotuner's backend grid: benchmarks/autotune_bench.py's SHAPES (M,
+# K, N) at <2:2>, <4:4> and <8:8>, 15 GEMMs (a copy: the script imports
+# nothing of benchmarks/). Each candidate is timed by measure_gemm over
+# three rounds of AUTOTUNE_ITERS calls (the median round).
+AUTOTUNE_SHAPES = [(4, 2048, 2048), (8, 4096, 1024), (64, 8192, 512),
+                   (256, 2048, 256), (1024, 512, 1024)]
+AUTOTUNE_BITS = (2, 4, 8)
+AUTOTUNE_ITERS = 20
+# Rates searched for the "cuda" row of autotune._RATES: 10^(i/4), 1e-3..1e3.
+RATE_GRID = [10 ** (i / 4) for i in range(-12, 13)]
+
+
+def autotune_grid(torch, clock_hz):
+    """The backend grid on the card: at each GEMM every candidate of
+    ``gemm_candidates`` (the four backends, each legalized kernel-2 tile
+    request among them) gives the same P, held with ``torch.equal`` to
+    int-direct's and to kernel 2's plain version; each candidate is timed
+    by ``measure_gemm`` (CUDA events around AUTOTUNE_ITERS calls, the
+    median of three rounds); the cost-mode pick (the committed "cuda"
+    rates, no tie-break) and the measure-mode pick
+    (``decide_gemm(mode="measure")`` as an engine runs it, at
+    ``measure_gemm``'s own default) are scored against the fastest backend
+    (the reference's ``autotune_regret`` row: a backend's time is its
+    best analytic candidate's, the one measure mode times). Each kernel-2
+    tile candidate is also timed on the device alone (``device_ms``),
+    where its launch plan, not the host, sets the time. Prints one JSON
+    line a GEMM and returns the rows, for :func:`fit_cuda_rates`."""
+    from repro_torch.core.bitserial import int_matmul_prepacked
+    from repro_torch.core.packed import prepack
+    from repro_torch.kernels import bitserial_matmul as km
+    from repro_torch.pim import autotune as at
+
+    rows = []
+    for m, k, n in AUTOTUNE_SHAPES:
+        for b in AUTOTUNE_BITS:
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            qa = torch.randint(0, 2 ** b, (m, k), generator=gen,
+                               dtype=torch.int32, device="cuda")
+            pk = prepack(torch.randn((k, n), generator=gen, device="cuda"), b)
+            want = int_matmul_prepacked(qa, pk, b, "int-direct")
+            plain = km.bitserial_matmul_fused_plain(qa, pk.planes, b, b)
+            if not torch.equal(plain, want):
+                raise AssertionError(f"plain kernel 2 != int-direct at "
+                                     f"{(m, k, n)} <{b}:{b}>")
+            cands = at.gemm_candidates(m, k, n, b, b, at.ALL_BACKENDS)
+            tile_device_ms = {}
+            for d in cands:
+                tuned = at.attach(pk, d)
+                if not torch.equal(int_matmul_prepacked(qa, tuned, b), want):
+                    raise AssertionError(f"{d} differs at {(m, k, n)} "
+                                         f"<{b}:{b}>")
+                if d.backend == "cuda":
+                    tile_device_ms[d] = device_ms(
+                        lambda: int_matmul_prepacked(qa, tuned, b), 20,
+                        clock_hz)
+            del qa, pk, want, plain
+            cost = {d: at.analytic_gemm_cost(m, k, n, b, b, d, "cuda")
+                    for d in cands}
+            ms = {d: at.measure_gemm(d, m, k, n, b, b, iters=AUTOTUNE_ITERS,
+                                     device="cuda") * 1e3 for d in cands}
+            heads = {}
+            for d in sorted(cands, key=lambda d: (cost[d], cands.index(d))):
+                heads.setdefault(d.backend, d)
+            backend_ms = {be: ms[d] for be, d in heads.items()}
+            fastest = min(backend_ms, key=backend_ms.get)
+            pick = at.decide_gemm(m, k, n, b, b, backends=at.ALL_BACKENDS,
+                                  hlo_tiebreak=False, device="cuda")
+            lib = {be: backend_ms[be] for be in at.LIBRARY_BACKENDS}
+            lib_fastest = min(lib, key=lib.get)
+            lib_pick = at.decide_gemm(m, k, n, b, b, hlo_tiebreak=False,
+                                      device="cuda")
+            live = at.decide_gemm(m, k, n, b, b, backends=at.ALL_BACKENDS,
+                                  mode="measure", hlo_tiebreak=False,
+                                  device="cuda")
+            tiles = [dict(bm=d.bm, bkw=d.bkw, ms=ms[d],
+                          device_ms=tile_device_ms[d],
+                          tile_factor=at._tile_factor(m, k, n, b, b, d))
+                     for d in cands if d.backend == "cuda"]
+            top = min(tiles, key=lambda t: t["tile_factor"])
+            row = dict(
+                autotune_grid=f"{m}x{k}x{n}", bits=f"<{b}:{b}>",
+                backend_ms=backend_ms, fastest=fastest,
+                cost_pick=pick.backend,
+                cost_regret=ms[pick] / backend_ms[fastest] - 1,
+                measure_pick=live.backend,
+                measure_regret=backend_ms[live.backend]
+                / backend_ms[fastest] - 1,
+                library_fastest=lib_fastest,
+                library_cost_pick=lib_pick.backend,
+                library_cost_regret=lib[lib_pick.backend] / lib[lib_fastest]
+                - 1,
+                cuda_tiles=tiles,
+                fastest_tile_is_analytic_top=min(
+                    tiles, key=lambda t: t["ms"]) is top,
+                fastest_device_tile_is_analytic_top=min(
+                    tiles, key=lambda t: t["device_ms"]) is top,
+                analytic_top_device_regret=top["device_ms"] / min(
+                    t["device_ms"] for t in tiles) - 1,
+                candidates_equal=len(cands))
+            print(json.dumps(row), flush=True)
+            # Each backend's cost at rate 1 (the committed rate multiplied
+            # back), for the fit.
+            row["base"] = {be: cost[d] * at._rates("cuda")[be]
+                           for be, d in heads.items()}
+            rows.append(row)
+    return rows
+
+
+def autotune_conv_grid(torch):
+    """The conv GEMMs the tuned engines decide: ``tune_tree`` ranks each
+    conv weight's im2col product among the library backends at
+    ``conv_m_hint`` = bucket x 224 x 224 rows, the reference's bound. At
+    each distinct (M, K, N) of ResNet-50's and AlexNet's convs (1 x 1
+    included; ``model_specs`` at 224 px) at the buckets served, every
+    library backend's P is held equal to int-direct's, each backend is
+    timed by ``measure_gemm`` at the rows the engine serves, and the
+    cost-mode pick (the committed "cuda" rates) is made at the hint, as
+    the engine makes it. Prints one JSON line a GEMM and returns the rows,
+    for :func:`fit_cuda_rates`."""
+    from repro_torch.core.bitserial import int_matmul_prepacked
+    from repro_torch.core.packed import TuneDecision, prepack
+    from repro_torch.models.cnn.specs import model_specs
+    from repro_torch.pim import autotune as at
+
+    rows, seen = [], set()
+    for bucket in SERVED_BUCKETS:
+        hint = bucket * 224 * 224
+        for model in ("resnet50", "alexnet"):
+            for s in model_specs(model, bucket, 224):
+                if s.kind != "conv" or (s.m, s.k, s.n) in seen:
+                    continue
+                seen.add((s.m, s.k, s.n))
+                gen = torch.Generator(device="cuda").manual_seed(0)
+                qa = torch.randint(0, 256, (s.m, s.k), generator=gen,
+                                   dtype=torch.int32, device="cuda")
+                pk = prepack(torch.randn((s.k, s.n), generator=gen,
+                                         device="cuda"), 8)
+                want = int_matmul_prepacked(qa, pk, 8, "int-direct")
+                for be in at.LIBRARY_BACKENDS:
+                    if not torch.equal(int_matmul_prepacked(qa, pk, 8, be),
+                                       want):
+                        raise AssertionError(f"{be} differs at conv GEMM "
+                                             f"{(s.m, s.k, s.n)} <8:8>")
+                del qa, pk, want
+                ms = {}
+                for be in at.LIBRARY_BACKENDS:
+                    t = at.measure_gemm(TuneDecision(backend=be), s.m, s.k,
+                                        s.n, 8, 8, iters=5, device="cuda")
+                    if t is not None:
+                        ms[be] = t * 1e3
+                cost = {be: at.analytic_gemm_cost(
+                    hint, s.k, s.n, 8, 8, TuneDecision(backend=be), "cuda")
+                    for be in at.LIBRARY_BACKENDS}
+                pick = min(at.LIBRARY_BACKENDS, key=cost.get)
+                if pick != at.decide_gemm(hint, s.k, s.n, 8, 8,
+                                          hlo_tiebreak=False,
+                                          device="cuda").backend:
+                    raise AssertionError("the conv grid's cost pick is not "
+                                         "decide_gemm's")
+                fastest = min(ms, key=ms.get)
+                row = dict(
+                    autotune_conv_grid=f"{s.m}x{s.k}x{s.n}", model=model,
+                    layer=s.name, bucket=bucket, hint_m=hint, bits="<8:8>",
+                    backend_ms=ms, library_fastest=fastest,
+                    library_cost_pick=pick,
+                    library_cost_regret=ms[pick] / ms[fastest] - 1
+                    if pick in ms else None)
+                print(json.dumps(row), flush=True)
+                row["base"] = {be: cost[be] * at._rates("cuda")[be]
+                               for be in cost}
+                rows.append(row)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def fit_cuda_rates(rows, conv_rows) -> dict:
+    """The "cuda" rates (popcount = 1) from RATE_GRID whose cost-mode pick
+    is the fastest backend on the most GEMMs, counted three times: the
+    grid's among the four backends (what an FC or projection weight ranks
+    on the card), the grid's among the three library backends (what MoE
+    banks rank), and the served convs' among the library three (what conv
+    weights rank, priced at the engine's hint rows, timed at the rows
+    served). Ties go to the least summed regret, then to the rates whose
+    predicted time ratios (each backend's cost over popcount's) are
+    nearest the measured ratios, in log over every row: the measured
+    backend times settle what the counts leave open. Prints the fit beside
+    the committed rates' match counts."""
+    import math
+
+    from repro_torch.pim import autotune as at
+
+    def hits_of(rates, rows, backends):
+        hits, regret = 0, 0.0
+        for r in rows:
+            ms = {be: r["backend_ms"][be] for be in backends
+                  if be in r["backend_ms"]}
+            pick = min(backends, key=lambda be: r["base"][be] / rates[be])
+            fastest = min(ms, key=ms.get)
+            hits += pick == fastest
+            regret += (ms[pick] / ms[fastest] - 1 if pick in ms
+                       else float("inf"))
+        return hits, regret
+
+    def score(rates):
+        counts = (hits_of(rates, rows, at.ALL_BACKENDS),
+                  hits_of(rates, rows, at.LIBRARY_BACKENDS),
+                  hits_of(rates, conv_rows, at.LIBRARY_BACKENDS))
+        return [c[0] for c in counts], sum(c[1] for c in counts)
+
+    measured = [(r["base"], r["backend_ms"]) for r in rows + conv_rows
+                if "popcount" in r["backend_ms"]]
+
+    def misfit(rates):
+        err = 0.0
+        for base, ms in measured:
+            for be, t in ms.items():
+                if be != "popcount":
+                    err += (math.log(base[be] / rates[be] / base["popcount"])
+                            - math.log(t / ms["popcount"])) ** 2
+        return err
+
+    best = None
+    for mxu in RATE_GRID:
+        for direct in RATE_GRID:
+            for cuda in RATE_GRID:
+                rates = {"popcount": 1.0, "mxu-plane": mxu,
+                         "int-direct": direct, "cuda": cuda}
+                hits, regret = score(rates)
+                key = (-sum(hits), round(regret, 9))
+                if best is not None and key > best[0][:2]:
+                    continue
+                key += (misfit(rates),)
+                if best is None or key < best[0]:
+                    best = (key, rates, hits)
+    committed, committed_regret = score(at._rates("cuda"))
+    out = dict(autotune_grid_summary=dict(
+        gemms=len(rows), conv_gemms=len(conv_rows),
+        committed_rates=at._rates("cuda"),
+        cost_matches_fastest=committed[0],
+        library_cost_matches_fastest=committed[1],
+        conv_cost_matches_fastest=committed[2],
+        cost_regret_sum=committed_regret,
+        measure_matches_fastest=sum(r["measure_pick"] == r["fastest"]
+                                    for r in rows),
+        fitted_rates=best[1], fitted_matches=best[2][0],
+        fitted_library_matches=best[2][1], fitted_conv_matches=best[2][2],
+        fitted_regret_sum=best[0][1], fitted_log_misfit=best[0][2],
+        fastest_tile_is_analytic_top=sum(r["fastest_tile_is_analytic_top"]
+                                         for r in rows),
+        fastest_device_tile_is_analytic_top=sum(
+            r["fastest_device_tile_is_analytic_top"] for r in rows)))
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _decision_name(d) -> str:
+    """A decision as a backend, with its tile requests where it has any."""
+    if d.bm is None and d.bkw is None:
+        return d.backend
+    return f"{d.backend} bm={d.bm} bkw={d.bkw}"
+
+
+def _picks(tree) -> dict:
+    """Decisions of a tuned tree by kind of leaf ("fc" and "conv_mat" of a
+    CNN, "proj" and "bank" of an LM): {decision name: count}."""
+    from repro_torch.core.packed import PackedConvWeight
+
+    out = {}
+    lm = isinstance(tree, dict) and "scan" in tree
+    for _, leaf in _packed_leaves(tree):
+        if isinstance(leaf, PackedConvWeight):
+            kind, d = "conv_mat", leaf.mat.tune
+        else:
+            kind = ("bank" if leaf.is_bank else "proj") if lm else "fc"
+            d = leaf.tune
+        by = out.setdefault(kind, {})
+        by[_decision_name(d)] = by.get(_decision_name(d), 0) + 1
+    return out
+
+
+def _picked_backends(picks) -> set:
+    return {name.split()[0] for by in picks.values() for name in by}
+
+
+def check_picked_kernels(label, picked, launches):
+    """Each kernel backend a tuned path dispatched to (``picked``) must
+    have launched its kernel in the timed run: "cuda" kernel 2,
+    "popcount" kernel 4."""
+    want = {"cuda": "bitserial_matmul_fused",
+            "popcount": "bitserial_matmul_packed"}
+    missing = [k for be, k in want.items() if be in picked
+               and not launches[k]]
+    if missing:
+        raise AssertionError(f"{label}: picked {sorted(picked)}, and "
+                             f"{missing} never launched: {launches}")
+
+
+class counted_im2col:
+    """While open, counts ``pim_conv2d``'s im2col products by the backend
+    each dispatches to (its weight's decision, else the layer's backend):
+    a conv weight's decision runs only where its conv takes the im2col
+    route, not on kernel 3."""
+
+    def __enter__(self):
+        from repro_torch.core import pim_layers
+
+        self.module, self.real, self.by = (
+            pim_layers, pim_layers.int_matmul_prepacked, {})
+
+        def counted(qa, w, a_bits, backend="cuda"):
+            be = w.tune.backend if w.tune is not None else backend
+            self.by[be] = self.by.get(be, 0) + 1
+            return self.real(qa, w, a_bits, backend)
+
+        pim_layers.int_matmul_prepacked = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.module.int_matmul_prepacked = self.real
+
+
+class counted_measures:
+    """While open, counts the calls of ``autotune.measure_gemm``."""
+
+    def __enter__(self):
+        from repro_torch.pim import autotune as at
+
+        self.module, self.real, self.n = at, at.measure_gemm, 0
+
+        def counted(*a, **k):
+            self.n += 1
+            return self.real(*a, **k)
+
+        at.measure_gemm = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.module.measure_gemm = self.real
+
+
+def autotune_vision(torch, np, ops, model, module, imgs, cache_path):
+    """``model`` at 224 px, 1000 classes, <8:8>, 12 requests (buckets 8 +
+    4) through ``VisionEngine(backend="cuda")`` untuned and with
+    ``autotune="measure"`` on a tuning cache file: a warm run, then a timed
+    run of each with the launch counts set to 0 just before it and read
+    just after; the tuned logits must equal the untuned ones bit for bit
+    (and so top-1). Prints the picks by backend and the conv routes (kernel
+    3's launches, and the im2col products by the backend each dispatched
+    to), the img/s of both, and a profiled bucket of 8 of both.
+    A second tuned engine on the same file must make the same decisions
+    with no call of ``measure_gemm``."""
+    from repro_torch.core.packed import PackedConvWeight
+    from repro_torch.serving import VisionEngine, VisionRequest
+
+    params = module.init(torch.Generator().manual_seed(0), num_classes=1000,
+                         image=224)
+
+    def serve(eng):
+        for rid in range(len(imgs)):
+            eng.submit(VisionRequest(rid=rid, image=imgs[rid], model=model))
+        t = time.perf_counter()
+        done = eng.run(strict=True)
+        torch.cuda.synchronize()
+        return sorted(done, key=lambda c: c.rid), time.perf_counter() - t
+
+    out, engines = {}, {}
+    with counted_measures() as first:
+        for label, kw in (("untuned", {}),
+                          ("tuned", dict(autotune="measure",
+                                         tuning_cache=cache_path))):
+            eng = VisionEngine({model: params}, backend="cuda", max_batch=8,
+                               device="cuda", **kw)
+            t = time.perf_counter()
+            serve(eng)                                  # warm (and tune)
+            warm_s = time.perf_counter() - t
+            with counted_im2col() as im2col:
+                ops.reset_launch_counts()
+                done, dt = serve(eng)
+                launches = ops.launch_counts()
+            out[label] = dict(done=done, img_per_s=len(done) / dt,
+                              warm_s=warm_s, launches=launches,
+                              im2col=im2col.by)
+            engines[label] = eng
+    base, tuned = out["untuned"]["done"], out["tuned"]["done"]
+    if [c.batch for c in tuned] != [c.batch for c in base] or not all(
+            np.array_equal(a.logits, b.logits) and a.top1 == b.top1
+            for a, b in zip(base, tuned)):
+        raise AssertionError(f"{model}: tuned logits differ from untuned")
+    eng = engines["tuned"]
+    trees = {k: v for k, v in eng._tuned.items()}
+    if sorted(k[-1] for k in trees) != [4, 8]:
+        raise AssertionError(f"{model}: tuned views {sorted(trees)}")
+    lt = out["tuned"]["launches"]
+    if not lt["conv2d_bitserial_fused"] or not lt["bitplane_pack"]:
+        raise AssertionError(f"{model}: the tuned path never launched "
+                             f"kernel 3 or kernel 1: {lt}")
+    picks = {f"bucket_{k[-1]}": _picks(v) for k, v in trees.items()}
+    # FC weights dispatch their decision in every bucket; a conv weight's
+    # only where its conv takes the im2col route.
+    fc = {leaf.tune.backend for tree in trees.values()
+          for _, leaf in _packed_leaves(tree)
+          if not isinstance(leaf, PackedConvWeight)}
+    check_picked_kernels(f"{model} tuned", fc | set(out["tuned"]["im2col"]),
+                         lt)
+    with counted_measures() as second:
+        again = VisionEngine({model: params}, backend="cuda", max_batch=8,
+                             autotune="measure", tuning_cache=cache_path,
+                             device="cuda")
+        done2, _ = serve(again)
+    def decisions(tree):
+        return [(leaf.tune, getattr(leaf, "mat", leaf).tune)
+                for _, leaf in _packed_leaves(tree)]
+
+    same = all(decisions(again._tuned[k]) == decisions(trees[k])
+               for k in trees)
+    if second.n or not same or not all(
+            np.array_equal(a.logits, b.logits) for a, b in zip(done2, base)):
+        raise AssertionError(f"{model}: a second engine on the cache made "
+                             f"{second.n} measurements (same decisions: "
+                             f"{same})")
+    profiles = {label: profile_bucket(torch, engines[label], imgs[:8],
+                                      VisionRequest, model)
+                for label in ("untuned", "tuned")}
+    over = profiles["tuned"]["device_ms"] / profiles["untuned"]["device_ms"]
+    if over > 1:
+        print(json.dumps(dict(autotune_slower_than_untuned=model,
+                              tuned_device_ms_over_untuned=over)),
+              flush=True)
+    print(json.dumps(dict(
+        autotune_serving=model, backend="cuda", image=224, precision="<8:8>",
+        requests=len(imgs), buckets=[8, 4], logits_equal=True,
+        top1_equal=True,
+        untuned_img_per_s=out["untuned"]["img_per_s"],
+        tuned_img_per_s=out["tuned"]["img_per_s"],
+        tune_warm_s=out["tuned"]["warm_s"],
+        untuned_warm_s=out["untuned"]["warm_s"],
+        measure_calls=first.n, second_engine_measure_calls=second.n,
+        cache_entries=len(eng.tune_cache), picks=picks,
+        untuned_launches=out["untuned"]["launches"], tuned_launches=lt,
+        im2col_products_by_backend={label: out[label]["im2col"]
+                                    for label in ("untuned", "tuned")},
+        tuned_device_ms_over_untuned=over,
+        tuned_device_ms_exceeds_untuned=over > 1,
+        profile_bucket_of_8={
+            label: {k: p[k] for k in ("wall_ms", "device_ms", "idle_share",
+                                      "bitserial_kernels_ms",
+                                      "launches_on_device")}
+            for label, p in profiles.items()})), flush=True)
+    for e in (*engines.values(), again):
+        e.close()
+
+
+def autotune_lm(torch, np, ops, cfg, params, cache_path, max_new=16):
+    """``cfg`` (llama3.2-3b, <8:8> on "cuda", ``LLAMA_LAYERS``) through
+    ``ServeEngine`` untuned and with ``autotune="measure"``: the eight
+    prompts of ``serve_lm``, a warm run and a timed run each (launch
+    counts set to 0 just before it, read just after), prefill and decode
+    tok/s on the host's clock around admissions and dispatches. The tuned
+    tokens must equal the untuned ones, and one 256-token prefill's logits
+    must be ``torch.equal`` to the untuned ones (two untuned prefills are
+    held equal first: the card's own spread)."""
+    from repro_torch.models.lm import model as M
+    from repro_torch.serving import Request, SamplerConfig, ServeEngine
+
+    prompts = lm_prompts(np, cfg.vocab)
+    probe = torch.from_numpy(prompts[0][:256]).cuda()[None]
+
+    def prefill(eng):
+        with torch.no_grad():
+            st = M.init_state(cfg, 1, LM_MAX_LEN, device="cuda")
+            return M.prefill(eng.params, cfg, probe, st)[0]
+
+    def serve(eng):
+        stats = dict(prefill_s=0.0, prefill_tokens=0, decode_s=0.0,
+                     decode_tokens=0)
+        admit, decode_n = eng._admit, eng._decode_n
+
+        def timed_admit():
+            before = sum(len(r.prompt) for r in eng.queue)
+            t = time.perf_counter()
+            admit()
+            torch.cuda.synchronize()
+            stats["prefill_s"] += time.perf_counter() - t
+            stats["prefill_tokens"] += before - sum(len(r.prompt)
+                                                    for r in eng.queue)
+
+        def timed_decode(n):
+            t = time.perf_counter()
+            res = decode_n(n)
+            stats["decode_s"] += time.perf_counter() - t
+            return res
+
+        eng._admit, eng._decode_n = timed_admit, timed_decode
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=max_new))
+        done = sorted(eng.run(strict=True), key=lambda c: c.rid)
+        del eng._admit, eng._decode_n
+        stats["decode_tokens"] = sum(len(c.tokens) - 1 for c in done)
+        return [c.tokens for c in done], stats
+
+    out = {}
+    with counted_measures() as measures:
+        for label, kw in (("untuned", {}),
+                          ("tuned", dict(autotune="measure",
+                                         tuning_cache=cache_path))):
+            t = time.perf_counter()
+            eng = ServeEngine(cfg, params, max_batch=LM_MAX_BATCH,
+                              max_len=LM_MAX_LEN,
+                              sampler=SamplerConfig(temperature=0.0),
+                              device="cuda", **kw)
+            torch.cuda.synchronize()
+            deploy_s = time.perf_counter() - t
+            serve(eng)                                   # warm
+            ops.reset_launch_counts()
+            tokens, stats = serve(eng)
+            launches = ops.launch_counts()
+            logits = prefill(eng)
+            out[label] = dict(
+                tokens=tokens, deploy_s=deploy_s, launches=launches,
+                prefill_tok_per_s=stats["prefill_tokens"]
+                / stats["prefill_s"],
+                decode_tok_per_s=stats["decode_tokens"] / stats["decode_s"],
+                logits=logits)
+            if label == "untuned":
+                spread = float((prefill(eng) - logits).abs().max())
+                if spread:
+                    print(json.dumps(dict(autotune_lm_untuned_spread=spread)),
+                          flush=True)
+            else:
+                picks = _picks(eng.params)
+                entries = len(eng.tune_cache)
+            eng.close()
+            del eng
+            torch.cuda.empty_cache()
+    base, tuned = out["untuned"], out["tuned"]
+    diff = float((tuned["logits"] - base["logits"]).abs().max())
+    if tuned["tokens"] != base["tokens"] or diff > spread:
+        raise AssertionError(f"{cfg.name}: tuned tokens or prefill logits "
+                             f"differ from untuned (max |diff| {diff}, the "
+                             f"untuned spread {spread})")
+    lt = tuned["launches"]
+    check_picked_kernels(f"{cfg.name} tuned", _picked_backends(picks), lt)
+    print(json.dumps(dict(
+        autotune_serving=cfg.name, layers=cfg.n_layers, precision="<8:8>",
+        backend="cuda", requests=len(prompts), max_batch=LM_MAX_BATCH,
+        max_new=max_new, tokens_equal=True,
+        prefill_logits_equal=diff == 0.0, prefill_logits_max_abs_diff=diff,
+        untuned_spread=spread,
+        untuned_prefill_tok_per_s=base["prefill_tok_per_s"],
+        tuned_prefill_tok_per_s=tuned["prefill_tok_per_s"],
+        untuned_decode_tok_per_s=base["decode_tok_per_s"],
+        tuned_decode_tok_per_s=tuned["decode_tok_per_s"],
+        untuned_deploy_s=base["deploy_s"], tuned_deploy_s=tuned["deploy_s"],
+        measure_calls=measures.n, cache_entries=entries, picks=picks,
+        untuned_launches=base["launches"],
+        tuned_launches=lt)), flush=True)
+
+
+def autotune_phase(torch, np, ops, imgs):
+    """The autotuner on the card: the backend grid and the "cuda" rates'
+    fit, then tuned vision serving (AlexNet, ResNet-50) and tuned LM
+    serving (llama3.2-3b <8:8>), each against its untuned engine."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import PIMQuantConfig
+    from repro_torch.models.cnn import alexnet, resnet
+    from repro_torch.models.lm import model as lm
+
+    with phase("autotune backend grid"):
+        clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
+        rows = autotune_grid(torch, clock_hz)
+        torch.cuda.empty_cache()
+        fit_cuda_rates(rows, autotune_conv_grid(torch))
+    with tempfile.TemporaryDirectory() as tmp:
+        for model, module in (("alexnet", alexnet), ("resnet50", resnet)):
+            with phase(f"autotune serve {model}"), no_plain_pack():
+                autotune_vision(torch, np, ops, model, module, imgs,
+                                f"{tmp}/{model}.json")
+                torch.cuda.empty_cache()
+        with phase("autotune serve llama3.2-3b <8:8>"), no_plain_pack():
+            cfg = dataclasses.replace(
+                get_config("llama3.2-3b").model, n_layers=LLAMA_LAYERS,
+                dtype="float32", pim=PIMQuantConfig(8, 8, backend="cuda"))
+            params = lm.init(cfg, torch.Generator(
+                device="cuda").manual_seed(0), device="cuda")
+            autotune_lm(torch, np, ops, cfg, params, f"{tmp}/llama.json")
+            del params
+            torch.cuda.empty_cache()
+
+
 def main(argv) -> int:
     kernel_rows = "--kernel-rows" in argv
-    unknown = [a for a in argv if a != "--kernel-rows"]
+    autotune_only = "--autotune" in argv
+    unknown = [a for a in argv if a not in ("--kernel-rows", "--autotune")]
     if unknown:
         print(f"chip_smoke.py: unknown arguments {unknown}", file=sys.stderr)
         return 2
@@ -2419,6 +3041,11 @@ def main(argv) -> int:
         for name in ("bitserial_matmul", "conv2d_fused"):
             if not kernel_rows:
                 check_imma_build(_build, name)
+    imgs = np.random.default_rng(0).standard_normal(
+        (12, 224, 224, 3)).astype(np.float32)
+    if autotune_only:
+        autotune_phase(torch, np, ops, imgs)
+        return 0
 
     # -- 3. kernels against their plain versions -----------------------------
     props = torch.cuda.get_device_properties(0)
@@ -2470,9 +3097,6 @@ def main(argv) -> int:
             kc.batched(e, m, k, n, wb, ab, timing=timing)
         kc.batched_wrap(*BATCHED_WRAP_ROW)
         torch.cuda.empty_cache()
-
-    imgs = np.random.default_rng(0).standard_normal(
-        (12, 224, 224, 3)).astype(np.float32)
 
     # -- 4. serving ResNet-50 -------------------------------------------------
     with phase("serve resnet50 cuda"), no_plain_pack():
@@ -2696,6 +3320,9 @@ def main(argv) -> int:
                               shared=shared, n_layers=layers,
                               cross_attn_every=1, n_image_tokens=64)
         del shared
+
+    # -- 9. the autotuner --------------------------------------------------------
+    autotune_phase(torch, np, ops, imgs)
 
     kernels = [
         summary(kc.rows, "bitplane_pack", launches["bitplane_pack"],

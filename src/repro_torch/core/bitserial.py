@@ -59,10 +59,12 @@ def _wrap_int32(p: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def int_matmul_popcount_packed(pa: torch.Tensor, pw: torch.Tensor,
-                               a_bits: int, w_bits: int) -> torch.Tensor:
-    """Eq. 1 on prepacked planes. pa (a_bits, M, KW), pw (w_bits, N, KW)."""
+                               a_bits: int, w_bits: int,
+                               **tiles) -> torch.Tensor:
+    """Eq. 1 on prepacked planes. pa (a_bits, M, KW), pw (w_bits, N, KW);
+    ``tiles``: kernel 4's tile requests (``bm``/``bkw``)."""
     return _kernels().bitserial_matmul_packed(pa, pw, a_bits=a_bits,
-                                              w_bits=w_bits)
+                                              w_bits=w_bits, **tiles)
 
 
 def int_matmul_popcount(qa: torch.Tensor, qw: torch.Tensor, a_bits: int,
@@ -129,6 +131,13 @@ def int_matmul(qa, qw, a_bits, w_bits, backend="popcount"):
     return int_matmul_prepacked(qa, _pack_codes(qw, unit), a_bits, backend)
 
 
+def _tiles(w: PackedWeight) -> dict:
+    """The tile requests of ``w``'s decision (none without one). Its
+    ``bn`` is not passed: the column tile has one legal value."""
+    t = w.tune
+    return {} if t is None else dict(bm=t.bm, bkw=t.bkw)
+
+
 def int_matmul_prepacked(qa: torch.Tensor, w: PackedWeight, a_bits: int,
                          backend: str = "cuda") -> torch.Tensor:
     """P = qa @ w.codes using whatever representation the backend wants.
@@ -137,7 +146,15 @@ def int_matmul_prepacked(qa: torch.Tensor, w: PackedWeight, a_bits: int,
     the weight side of quantize -> slice -> pack never runs again. The
     code backends widen byte codes first (``int-direct`` to float64,
     ``mxu-plane`` to int32 before its shifts).
+
+    A :class:`~repro_torch.core.packed.TuneDecision` attached at prepack
+    time (``w.tune``, see :mod:`repro_torch.pim.autotune`) overrides
+    ``backend`` and supplies the tile requests of kernels 2 (``cuda``) and
+    4 (``popcount``). Tuning redirects dispatch only: every backend and
+    plan computes the same P bit for bit.
     """
+    if w.tune is not None:
+        backend = w.tune.backend
     w_bits = w.bits
     if backend == "int-direct":
         return int_matmul_direct(qa, w.codes)
@@ -146,10 +163,11 @@ def int_matmul_prepacked(qa: torch.Tensor, w: PackedWeight, a_bits: int,
     ops = _kernels()
     if backend == "popcount":
         pa = ops.pack_planes(qa, a_bits)
-        return int_matmul_popcount_packed(pa, w.planes, a_bits, w_bits)
+        return int_matmul_popcount_packed(pa, w.planes, a_bits, w_bits,
+                                          **_tiles(w))
     if backend == "cuda":
         return ops.bitserial_matmul(qa, a_bits=a_bits, w_bits=w_bits,
-                                    pw=w.planes)
+                                    pw=w.planes, **_tiles(w))
     raise ValueError(f"unknown backend {backend!r} (ported: {BACKENDS})")
 
 
@@ -162,13 +180,17 @@ def int_matmul_prepacked_bank(qa: torch.Tensor, w: PackedWeight, a_bits: int,
     ``cuda`` is one launch of kernel 2's batched entry for the whole bank;
     ``int-direct`` one float64 batched product of the codes; ``popcount``
     packs every expert's codes in one pack, then runs kernel 4 expert by
-    expert; ``mxu-plane`` runs expert by expert.
+    expert; ``mxu-plane`` runs expert by expert. ``w.tune`` overrides
+    ``backend`` and supplies tile requests, as in
+    :func:`int_matmul_prepacked`.
     """
+    if w.tune is not None:
+        backend = w.tune.backend
     e, m, k = qa.shape
     ops = _kernels()
     if backend == "cuda":
         return ops.bitserial_matmul_batched(qa, a_bits=a_bits, w_bits=w.bits,
-                                            pw=w.planes)
+                                            pw=w.planes, **_tiles(w))
     if backend == "int-direct":
         return int_matmul_direct(qa, w.codes)    # a batched product
     if backend == "mxu-plane":
@@ -179,7 +201,8 @@ def int_matmul_prepacked_bank(qa: torch.Tensor, w: PackedWeight, a_bits: int,
         pa = ops.pack_planes(qa.reshape(e * m, k), a_bits).reshape(
             a_bits, e, m, -1)
         return torch.stack([
-            int_matmul_popcount_packed(pa[:, i], w.planes[i], a_bits, w.bits)
+            int_matmul_popcount_packed(pa[:, i], w.planes[i], a_bits, w.bits,
+                                       **_tiles(w))
             for i in range(e)])
     raise ValueError(f"unknown backend {backend!r} (ported: {BACKENDS})")
 

@@ -15,6 +15,10 @@ kernel (:mod:`repro_torch.kernels.conv2d_fused`). Planes are int32 bit
 patterns (see :mod:`.bitslice`), packed by ``kernels.ops.pack_planes``: on
 a CUDA tensor kernel 1, on a CPU tensor its plain version.
 
+A :class:`TuneDecision` rides on each packed weight as ``tune`` (None
+until the autotuner, :mod:`repro_torch.pim.autotune`, attaches one), and
+every device move keeps it.
+
 Codes of at most 8 bits are kept as ``uint8``, a quarter of the int32 the
 JAX package keeps: the planes and column sums are computed from the int32
 codes first, and every reader of ``codes`` widens them (``codes32``), so
@@ -37,6 +41,28 @@ def pack_planes(q: torch.Tensor, bits: int) -> torch.Tensor:
 
 
 @dataclasses.dataclass(frozen=True)
+class TuneDecision:
+    """Autotuner verdict carried on a packed weight.
+
+    ``backend`` overrides the config's Eq. 1 execution strategy at use
+    time; ``bm``/``bn``/``bkw`` are tile *requests* for kernels 2 and 4
+    (legalized against the operands by ``kernels.ops.matmul_tiles``, so a
+    decision never makes an illegal launch plan); ``conv_mode``/``bo``
+    steer ``pim_conv2d``'s lowering path and the fused conv's O block.
+    ``None`` fields defer to the planner and heuristic defaults: a
+    ``TuneDecision`` with only a backend changes dispatch and nothing else.
+    Frozen and hashable; attaching one copies no tensor.
+    """
+
+    backend: str = "popcount"
+    bm: int | None = None
+    bn: int | None = None
+    bkw: int | None = None
+    conv_mode: str | None = None   # "fused" | "im2col" (conv weights only)
+    bo: int | None = None          # fused-conv O block (conv weights only)
+
+
+@dataclasses.dataclass(frozen=True)
 class PackedWeight:
     """A (K, N) weight quantized and bit-plane-packed once.
 
@@ -46,6 +72,9 @@ class PackedWeight:
     planes    (bits, N, KW) int32   — K-packed planes of ``codes.T``
     col_sums  (N,) int32            — sum_k codes[k, n] (Sw of the algebra)
     wq        QuantParams           — scale/qmin/bits of the weight
+    tune      TuneDecision | None   — the autotuner's verdict; None keeps
+                                      the config's backend and the
+                                      planner's tiles
 
     An (E, K, N) expert bank keeps the JAX package's ``vmap``-ed layout:
     codes (E, K, N), planes (E, bits, N, KW), col_sums (E, N) and a ``wq``
@@ -56,6 +85,7 @@ class PackedWeight:
     planes: torch.Tensor
     col_sums: torch.Tensor
     wq: QuantParams
+    tune: TuneDecision | None = None
 
     @property
     def bits(self) -> int:
@@ -84,8 +114,10 @@ class PackedWeight:
         return dequantize(self.codes, wq)
 
     def to(self, device) -> PackedWeight:
-        return PackedWeight(self.codes.to(device), self.planes.to(device),
-                            self.col_sums.to(device), self.wq.to(device))
+        """The weight on ``device``; every other field (``tune``) kept."""
+        return dataclasses.replace(
+            self, codes=self.codes.to(device), planes=self.planes.to(device),
+            col_sums=self.col_sums.to(device), wq=self.wq.to(device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,11 +129,14 @@ class PackedConvWeight:
     fused_planes (KH, bits, O, KW, CW) int32 — channel-packed planes per
                  kernel row, the layout the fused implicit-im2col kernel
                  reads one (kh) slab at a time.
+    tune         TuneDecision | None — the conv-level verdict (route and O
+                 block); the im2col product's rides on ``mat.tune``.
     """
 
     mat: PackedWeight
     fused_planes: torch.Tensor
     kernel_shape: tuple = (1, 1, 1, 1)
+    tune: TuneDecision | None = None
 
     @property
     def bits(self) -> int:
@@ -115,9 +150,8 @@ class PackedConvWeight:
         return self.mat.to_float().reshape(self.kernel_shape)
 
     def to(self, device) -> PackedConvWeight:
-        return PackedConvWeight(self.mat.to(device),
-                                self.fused_planes.to(device),
-                                self.kernel_shape)
+        return dataclasses.replace(self, mat=self.mat.to(device),
+                                   fused_planes=self.fused_planes.to(device))
 
 
 def narrow_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:

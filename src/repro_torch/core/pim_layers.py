@@ -151,13 +151,21 @@ def pim_conv2d(x: torch.Tensor, w, b: torch.Tensor | None = None,
     if not packed:
         w = prepack_conv(w, cfg.w_bits)
 
+    # A conv-level TuneDecision (repro_torch.pim.autotune) resolves "auto"
+    # and supplies the fused O block; an explicit conv_mode still wins, and
+    # the im2col product's backend rides on w.mat.tune inside
+    # int_matmul_prepacked. Tuning moves dispatch, never bits.
+    tune = w.tune
+    if conv_mode == "auto" and tune is not None and tune.conv_mode:
+        conv_mode = tune.conv_mode
     fused = {"fused": True, "im2col": False}.get(
         conv_mode, fuse_conv_heuristic(n, oh, ow, kh, kw, c, cfg.backend))
     if fused:
         from repro_torch.kernels import ops as _kops
 
         p = _kops.conv2d_bitserial(qx, w.fused_planes, a_bits=cfg.a_bits,
-                                   stride=stride)
+                                   stride=stride,
+                                   bo=tune.bo if tune is not None else None)
     else:
         qcols, _, _ = _im2col(qx, kh, kw, stride, 0)
         p = int_matmul_prepacked(qcols, w.mat, cfg.a_bits, cfg.backend)

@@ -76,20 +76,33 @@ class Plan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=4096)
-def _plan(m: int, n: int, kw: int, sms: int, e: int = 1) -> Plan:
+def _plan(m: int, n: int, kw: int, sms: int, e: int = 1,
+          bm: int | None = None, bkw: int | None = None) -> Plan:
     """The launch plan of ``e`` (M, N) products (one, or an expert bank's)
     over KW words of K on a card of ``sms`` SMs: the 16-row tile for M <=
     16, else the 64-row one; K split across blocks until the grid (the
     tiles of all ``e`` products) holds about two blocks per SM (where KW
     has the steps for it), and always into ranges of at most
     ``SLAB_WORDS``; the grid's z (``e`` times the splits) stays within
-    65,535."""
-    variant = SMALL if m <= SMALL_M else LARGE
-    bm, bn, kstep = TILES[variant]
-    tiles = max(1, e * -(-m // bm) * -(-n // bn))
+    65,535.
+
+    ``bm``/``bkw`` are the autotuner's requests (``ops.matmul_tiles``):
+    ``bm`` picks the tile (<= 16 rows the 16-row one, else the 64-row
+    one), ``bkw`` the words of a split, rounded up to the tile's step and
+    capped at ``SLAB_WORDS`` and at K. Without them the plan is the one
+    above."""
+    small = (m if bm is None else bm) <= SMALL_M
+    variant = SMALL if small else LARGE
+    tm, tn, kstep = TILES[variant]
     steps = -(-kw // kstep)
-    splits = max(-(-2 * sms // tiles), -(-steps // (SLAB_WORDS // kstep)))
-    per = max(1, -(-steps // max(1, min(splits, steps, 65535 // e))))
+    if bkw is None:
+        tiles = max(1, e * -(-m // tm) * -(-n // tn))
+        splits = max(-(-2 * sms // tiles),
+                     -(-steps // (SLAB_WORDS // kstep)))
+        per = max(1, -(-steps // max(1, min(splits, steps, 65535 // e))))
+    else:
+        per = min(max(1, -(-bkw // kstep)), SLAB_WORDS // kstep, steps)
+        per = max(per, -(-steps // (65535 // e)))
     return Plan(variant, per * kstep, max(1, -(-steps // per)))
 
 
@@ -135,7 +148,11 @@ def bitserial_matmul_fused_batched_plain(qa: torch.Tensor, pw: torch.Tensor,
 
 
 def bitserial_matmul_fused(qa: torch.Tensor, pw: torch.Tensor, a_bits: int,
-                           w_bits: int) -> torch.Tensor:
+                           w_bits: int, bm: int | None = None,
+                           bkw: int | None = None) -> torch.Tensor:
+    """qa (M, K) int32 codes, pw (w_bits, N, KW) int32 planes -> P (M, N)
+    int32; ``bm``/``bkw`` are :func:`_plan`'s requests (the plain version
+    has no plan)."""
     if qa.dim() != 2 or qa.dtype != torch.int32:
         raise ValueError(f"want (M, K) int32 codes, got {tuple(qa.shape)} "
                          f"{qa.dtype}")
@@ -159,16 +176,19 @@ def bitserial_matmul_fused(qa: torch.Tensor, pw: torch.Tensor, a_bits: int,
     if m == 0 or n == 0:
         return torch.empty((m, n), dtype=torch.int32, device=qa.device)
     out = _launch("fused", qa.contiguous(), pw.contiguous(), m, n, (k,), kw,
-                  a_bits, w_bits)
+                  a_bits, w_bits, bm=bm, bkw=bkw)
     global launches
     launches += 1
     return out
 
 
 def bitserial_matmul_fused_batched(qa: torch.Tensor, pw: torch.Tensor,
-                                   a_bits: int, w_bits: int) -> torch.Tensor:
+                                   a_bits: int, w_bits: int,
+                                   bm: int | None = None,
+                                   bkw: int | None = None) -> torch.Tensor:
     """E fused products in one launch: qa (E, M, K) int32 codes, pw (E,
-    w_bits, N, KW) int32 planes -> P (E, M, N) int32."""
+    w_bits, N, KW) int32 planes -> P (E, M, N) int32; ``bm``/``bkw`` as
+    :func:`bitserial_matmul_fused` takes them."""
     if qa.dim() != 3 or qa.dtype != torch.int32:
         raise ValueError(f"want (E, M, K) int32 codes, got {tuple(qa.shape)} "
                          f"{qa.dtype}")
@@ -196,14 +216,17 @@ def bitserial_matmul_fused_batched(qa: torch.Tensor, pw: torch.Tensor,
     if e == 0 or m == 0 or n == 0:
         return torch.empty((e, m, n), dtype=torch.int32, device=qa.device)
     out = _launch("fused_batched", qa.contiguous(), pw.contiguous(), m, n,
-                  (k,), kw, a_bits, w_bits, e=e)
+                  (k,), kw, a_bits, w_bits, e=e, bm=bm, bkw=bkw)
     global batched_launches
     batched_launches += 1
     return out
 
 
 def bitserial_matmul_packed(pa: torch.Tensor, pw: torch.Tensor, a_bits: int,
-                            w_bits: int) -> torch.Tensor:
+                            w_bits: int, bm: int | None = None,
+                            bkw: int | None = None) -> torch.Tensor:
+    """pa (a_bits, M, KW), pw (w_bits, N, KW) int32 planes -> P (M, N)
+    int32; ``bm``/``bkw`` as :func:`bitserial_matmul_fused` takes them."""
     if pa.dim() != 3 or pa.dtype != torch.int32 or pa.shape[0] != a_bits:
         raise ValueError(f"want ({a_bits}, M, KW) int32 planes, got "
                          f"{tuple(pa.shape)} {pa.dtype}")
@@ -227,7 +250,7 @@ def bitserial_matmul_packed(pa: torch.Tensor, pw: torch.Tensor, a_bits: int,
     if m == 0 or n == 0:
         return torch.empty((m, n), dtype=torch.int32, device=pa.device)
     out = _launch("packed", pa.contiguous(), pw.contiguous(), m, n, (), kw,
-                  a_bits, w_bits)
+                  a_bits, w_bits, bm=bm, bkw=bkw)
     global packed_launches
     packed_launches += 1
     return out
@@ -250,12 +273,15 @@ def _entries() -> dict:
             for e in ("fused", "packed", "fused_batched")}
 
 
-def _launch(entry, a, pw, m, n, k, kw, a_bits, w_bits, e=None) -> torch.Tensor:
+def _launch(entry, a, pw, m, n, k, kw, a_bits, w_bits, e=None, bm=None,
+            bkw=None) -> torch.Tensor:
     """One launch of ``repro_bitserial_matmul_<entry>`` with :func:`_plan`'s
-    plan; ``k`` is ``(K,)`` for the fused entries, ``()`` for the packed;
-    ``e`` is the batched entry's product count (its output (E, M, N)). On
-    the split path the C entry zeroes ``out`` on the stream first."""
-    plan = _plan(m, n, kw, _sm_count(a.device), 1 if e is None else e)
+    plan (at the ``bm``/``bkw`` requests, if any); ``k`` is ``(K,)`` for
+    the fused entries, ``()`` for the packed; ``e`` is the batched entry's
+    product count (its output (E, M, N)). On the split path the C entry
+    zeroes ``out`` on the stream first."""
+    plan = _plan(m, n, kw, _sm_count(a.device), 1 if e is None else e,
+                 bm, bkw)
     lead = () if e is None else (e,)
     out = torch.empty((*lead, m, n), dtype=torch.int32, device=a.device)
     fn = _entries()[entry]

@@ -54,42 +54,89 @@ def pack_planes(q: torch.Tensor, bits: int) -> torch.Tensor:
     return _pack.bitplane_pack(q, bits)
 
 
+def matmul_tiles(m: int, n: int, kw: int, a_bits: int, w_bits: int,
+                 bm: int | None = None, bn: int | None = None,
+                 bkw: int | None = None) -> tuple:
+    """Legal (bm, bn, bkw) for an (M, N, KW-words) product on kernels 2
+    and 4, the counterpart of the JAX package's ``ops.matmul_tiles``.
+
+    ``bm``/``bn``/``bkw`` are *requests* (an autotuner decision's, or a
+    caller's), legalized against ``_plan``'s tiles: ``bm`` picks the row
+    tile (16 rows at a request of 16 or less, or for M <= 16 without one;
+    else 64), ``bn`` has one legal value, the tiles' 128 columns, and
+    ``bkw`` asks for the words of a K split, rounded up to the tile's
+    4-word step and capped at ``SLAB_WORDS`` and at K. A ``bkw`` of None
+    stays None: the plan then splits K to fill the card, as it does
+    untuned. The bits do not enter: the tiles hold 1..8 bits alike.
+    """
+    small = (m if bm is None else bm) <= _bsm.SMALL_M
+    tm, tn, _ = _bsm.TILES[_bsm.SMALL if small else _bsm.LARGE]
+    if bkw is None:
+        return tm, tn, None
+    return tm, tn, _bsm._plan(m, n, kw, 1, 1, tm, bkw).split_words
+
+
+def _plan_requests(m: int, n: int, kw: int, bm, bkw) -> dict:
+    """A tile request as ``_plan``'s keywords (none without a request)."""
+    if bm is None and bkw is None:
+        return {}
+    tm, _, words = matmul_tiles(m, n, kw, 0, 0, bm, None, bkw)
+    return dict(bm=tm, bkw=words)
+
+
 def bitserial_matmul(qa: torch.Tensor, *, a_bits: int, w_bits: int,
-                     pw: torch.Tensor) -> torch.Tensor:
+                     pw: torch.Tensor, bm: int | None = None,
+                     bkw: int | None = None) -> torch.Tensor:
     """Eq. 1 bit-serial integer matmul -> (M, N) int32.
 
     ``qa`` (M, K) activation codes; ``pw`` (w_bits, N, ceil(K/32))
-    prepacked weight planes (``PackedWeight.planes``).
+    prepacked weight planes (``PackedWeight.planes``). ``bm``/``bkw`` are
+    tile requests (:func:`matmul_tiles`; the column tile has one legal
+    value, so a decision's ``bn`` is not passed); the autotuner threads
+    its decisions through here. They move the launch plan only, never P.
     """
-    return _bsm.bitserial_matmul_fused(qa, pw, a_bits, w_bits)
+    return _bsm.bitserial_matmul_fused(
+        qa, pw, a_bits, w_bits,
+        **_plan_requests(qa.shape[0], pw.shape[1], pw.shape[-1], bm, bkw))
 
 
 def bitserial_matmul_batched(qa: torch.Tensor, *, a_bits: int, w_bits: int,
-                             pw: torch.Tensor) -> torch.Tensor:
+                             pw: torch.Tensor, bm: int | None = None,
+                             bkw: int | None = None) -> torch.Tensor:
     """Eq. 1 over an expert bank in one launch -> (E, M, N) int32.
 
     ``qa`` (E, M, K) activation codes; ``pw`` (E, w_bits, N, ceil(K/32))
-    the bank's prepacked planes (a bank ``PackedWeight.planes``).
+    the bank's prepacked planes (a bank ``PackedWeight.planes``); tile
+    requests as :func:`bitserial_matmul` takes them.
     """
-    return _bsm.bitserial_matmul_fused_batched(qa, pw, a_bits, w_bits)
+    return _bsm.bitserial_matmul_fused_batched(
+        qa, pw, a_bits, w_bits,
+        **_plan_requests(qa.shape[1], pw.shape[2], pw.shape[-1], bm, bkw))
 
 
 def bitserial_matmul_packed(pa: torch.Tensor, pw: torch.Tensor, *,
-                            a_bits: int, w_bits: int) -> torch.Tensor:
+                            a_bits: int, w_bits: int, bm: int | None = None,
+                            bkw: int | None = None) -> torch.Tensor:
     """Eq. 1 on two prepacked plane sets -> (M, N) int32.
 
     ``pa`` (a_bits, M, KW) activation planes (:func:`pack_planes`); ``pw``
-    (w_bits, N, KW) weight planes.
+    (w_bits, N, KW) weight planes; tile requests as
+    :func:`bitserial_matmul` takes them.
     """
-    return _bsm.bitserial_matmul_packed(pa, pw, a_bits, w_bits)
+    return _bsm.bitserial_matmul_packed(
+        pa, pw, a_bits, w_bits,
+        **_plan_requests(pa.shape[1], pw.shape[1], pw.shape[-1], bm, bkw))
 
 
 def conv2d_bitserial(qx: torch.Tensor, pw: torch.Tensor, *, a_bits: int,
-                     stride: int = 1) -> torch.Tensor:
+                     stride: int = 1, bo: int | None = None) -> torch.Tensor:
     """Implicit-im2col bit-serial conv -> P (N, OH, OW, O) int32.
 
     ``qx`` (N, Hp, Wp, C) int32 activation codes, already spatially padded
     with the zero code; ``pw`` (KH, w_bits, O, KW, CW) fused planes.
+    ``bo`` is the reference's O-block request (an autotuner decision's).
+    Kernel 3 has one O block, ``conv2d_fused.BN`` = 64 channels, so every
+    request legalizes to it and the launch plan does not move.
     """
     n, hp, wp, c = qx.shape
     kh, _, _, kw_sz, cw = pw.shape

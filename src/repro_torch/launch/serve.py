@@ -24,7 +24,9 @@ power-of-two micro-batch buckets; a warm run fills the prepack cache and
 builds the kernels, the timed run then measures serving.
 
 Both run on the GPU unless ``--device cpu``, and print the lines of
-``repro.launch.serve`` for the same workload.
+``repro.launch.serve`` for the same workload. ``--autotune cost|measure``
+tunes every packed weight's backend and tiles (``repro_torch.pim.
+autotune``); ``--tuning-cache PATH`` keeps the decisions across launches.
 """
 from __future__ import annotations
 
@@ -53,7 +55,8 @@ def serve_cnn(args):
     params = module.init(torch.Generator().manual_seed(0), image=args.image,
                          num_classes=args.classes)
     eng = VisionEngine({args.cnn_model: params}, backend=args.backend,
-                       max_batch=args.max_batch, device=args.device)
+                       max_batch=args.max_batch, autotune=args.autotune,
+                       tuning_cache=args.tuning_cache, device=args.device)
     rng = np.random.default_rng(0)
     imgs = rng.standard_normal(
         (args.requests, args.image, args.image, 3)).astype(np.float32)
@@ -93,7 +96,8 @@ def serve_lm(args):
     eng = ServeEngine(cfg, params, max_batch=args.max_batch,
                       max_len=args.max_len,
                       sampler=SamplerConfig(temperature=args.temperature),
-                      device=device)
+                      autotune=args.autotune,
+                      tuning_cache=args.tuning_cache, device=device)
     rng = np.random.default_rng(0)
     t0 = time.time()
     for rid in range(args.requests):
@@ -131,6 +135,15 @@ def main(argv=None):
                     help="Eq. 1 backend: cuda and popcount run the CUDA "
                          "kernels, mxu-plane and int-direct a library "
                          "product")
+    ap.add_argument("--autotune", default="off",
+                    choices=("off", "cost", "measure"),
+                    help="per-weight backend/tile autotuning at prepack "
+                         "(repro_torch.pim.autotune): 'cost' ranks "
+                         "candidates with the NAND-SPIN cost model, "
+                         "'measure' refines the finalists by timing them")
+    ap.add_argument("--tuning-cache", default=None, metavar="PATH",
+                    help="JSON tuning-cache file persisting autotune "
+                         "decisions across launches (default: in memory)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
                          "PyTorch versions")

@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.packed import prepack
+from repro_torch.core.packed import PackedWeight, prepack
 from repro_torch.core.pim_layers import pim_linear
 
 from . import attention as A
@@ -216,8 +216,12 @@ def _map(fn, tree):
 def cast_params(params, dtype):
     """Cast float32 leaves of two or more dimensions to ``dtype``, as the
     JAX package does (stacked leaves count their rep axis, so a stacked
-    norm scale is cast too; the final norm stays float32)."""
+    norm scale is cast too; the final norm stays float32). A packed
+    weight, whose tensors are integer codes and planes, is kept whole, its
+    ``tune`` with it."""
     def _cast(x):
+        if isinstance(x, PackedWeight):
+            return x
         if x.dtype == torch.float32 and x.dim() >= 2:
             return x.to(dtype)
         return x

@@ -41,9 +41,15 @@ paper's program-subarrays-once step) and prefill/decode never re-quantize
 a weight (a tied head, which stays float, quantizes at every call, as in
 the JAX package).
 
+Autotune (``autotune="cost"|"measure"``, :mod:`repro_torch.pim.autotune`):
+right after prepack every packed weight gets a decision (backend and
+kernel-2 tiles) for this deployment's decode shape (m = ``max_batch``;
+MoE banks at every expert's capacity rows), recorded in the tuning cache.
+Decisions move dispatch only: tokens and logits are the untuned engine's.
+
 Later slices (``ROADMAP.md`` Queue 1): mesh serving, pipelined decode,
-the fault model and watchdog, the autotuner, snapshot/restore, redeploy
-and the gateway. The constructor raises ``NotImplementedError`` for each.
+the fault model and watchdog, snapshot/restore, redeploy and the gateway.
+The constructor raises ``NotImplementedError`` for each.
 """
 from __future__ import annotations
 
@@ -99,12 +105,14 @@ class ServeEngine:
                  keep_masters: bool = False, autotune: str = "off",
                  tuning_cache=None, pipeline_stages: int = 1,
                  pipeline_microbatches: int | None = None):
+        if autotune not in ("off", "cost", "measure"):
+            raise ValueError(
+                f"autotune {autotune!r}: want 'off' | 'cost' | 'measure'")
         refuse_unported("ServeEngine", dict(
             mesh=mesh is not None, faults=faults is not None,
             watchdog=watchdog is not None,
             fault_injector=fault_injector is not None,
-            keep_masters=keep_masters, autotune=autotune != "off",
-            tuning_cache=tuning_cache is not None,
+            keep_masters=keep_masters,
             pipeline_stages=pipeline_stages != 1,
             pipeline_microbatches=pipeline_microbatches is not None))
         if not cfg.embed_inputs or cfg.cross_attn_every:
@@ -122,6 +130,10 @@ class ServeEngine:
         with torch.no_grad():
             self.params = prepack_params(to_device(params, self.device),
                                          cfg.pim)
+        self.autotune = autotune
+        self._tuning_cache_arg = tuning_cache
+        self.tune_cache = None
+        self._maybe_autotune()
         self.state = init_state(cfg, max_batch, max_len, self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
@@ -148,6 +160,30 @@ class ServeEngine:
         # top-k assignments dropped at expert capacity.
         self.rings = {"moe_drop_frac": Ring(512)} if cfg.moe else {}
         self._closed = False
+
+    def _maybe_autotune(self):
+        """Attach a TuneDecision to every packed weight of the prepacked
+        tree (autotune on and ``cfg.pim`` enabled), for this deployment's
+        decode shape (m = ``max_batch``), from the candidates of
+        ``autotune.default_backends(device)``. Expert banks decide at the
+        rows of every expert's capacity buffer (``moe_m_hint``)."""
+        if self.autotune == "off" or not getattr(self.cfg.pim, "enabled",
+                                                 False):
+            return
+        from repro_torch.pim import autotune as _at
+
+        if self.tune_cache is None:
+            self.tune_cache = _at.as_cache(self._tuning_cache_arg)
+        moe_kw = {}
+        if self.cfg.moe:
+            from repro_torch.models.lm.moe import _capacity
+
+            moe_kw["moe_m_hint"] = (self.cfg.moe.n_experts
+                                    * _capacity(self.max_batch, self.cfg))
+        self.params = _at.tune_tree(
+            self.params, m_hint=self.max_batch, a_bits=self.cfg.pim.a_bits,
+            backends=_at.default_backends(self.device), mode=self.autotune,
+            cache=self.tune_cache, device=self.device, **moe_kw)
 
     # -- device paths --------------------------------------------------------
 
@@ -329,7 +365,12 @@ class ServeEngine:
         """Engine teardown: drop the device tensors the engine holds (the
         prepacked weights, the decode grid, the control block and the
         generator), so their memory returns to the allocator, and refuse
-        further work. ``stats()`` still answers."""
+        further work. ``stats()`` still answers. The tuning cache is reset,
+        so a later engine sharing the cache object re-reads its (possibly
+        repaired) backing file instead of serving this engine's stale
+        fallback memo."""
+        if self.tune_cache is not None:
+            self.tune_cache.reset()
         self.params = self.state = self.ctrl = self.generator = None
         self.queue.clear()
         self.slot_req = [None] * self.max_batch

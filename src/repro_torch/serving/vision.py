@@ -10,6 +10,13 @@
     conv/fc weight (the paper's program-subarrays-once step) and caches the
     result; every later bucket of that pair reuses it. ``precision=None``
     serves the float forward from the same device-resident masters.
+  * **Autotune** (``autotune="cost"|"measure"``,
+    :mod:`repro_torch.pim.autotune`). Conv GEMM shapes depend on the image
+    size, known only at dispatch, so a quantized bucket dispatches a tuned
+    view of the packed tree per (model, precision, image, bucket): the
+    same tensors with a decision on every packed weight, kept in
+    ``_tuned``. Decisions move dispatch only, so the logits are the
+    untuned engine's bit for bit.
 
 Numerics: a bucket's logits equal ``model.apply`` on the same stacked batch
 with the same ``PIMQuantConfig`` — activation calibration is per batch in
@@ -76,8 +83,6 @@ _LATER = {
     "watchdog": "faults and the watchdog",
     "fault_injector": "faults and the watchdog",
     "keep_masters": "redeploy and the gateway",
-    "autotune": "the autotuner",
-    "tuning_cache": "the autotuner",
     "pipeline_stages": "pipelined decode with mesh serving",
     "pipeline_microbatches": "pipelined decode with mesh serving",
 }
@@ -117,11 +122,15 @@ class VisionEngine:
     "int-direct"); requests pick their own precision. ``max_batch`` is the
     largest micro-batch bucket (rounded down to a power of two).
 
+    ``autotune`` ("off" | "cost" | "measure") tunes every quantized
+    bucket's packed weights (conv weights always by cost, as in the
+    reference; "measure" times the FC candidates on the device);
+    ``tuning_cache`` is a path, a ``TuningCache`` or None (in memory).
+
     The reference's other keywords are taken at their defaults; ``seed`` is
     kept (nothing in this slice draws from it), and a non-default ``mesh``,
-    ``faults``, ``watchdog``, ``fault_injector``, ``autotune`` or
-    ``tuning_cache`` raises ``NotImplementedError`` naming the slice that
-    brings it.
+    ``faults``, ``watchdog`` or ``fault_injector`` raises
+    ``NotImplementedError`` naming the slice that brings it.
     """
 
     def __init__(self, models: dict, backend: str = "cuda",
@@ -134,8 +143,7 @@ class VisionEngine:
         refuse_unported("VisionEngine", dict(
             mesh=mesh is not None, faults=faults is not None,
             watchdog=watchdog is not None,
-            fault_injector=fault_injector is not None,
-            autotune=autotune != "off", tuning_cache=tuning_cache is not None))
+            fault_injector=fault_injector is not None))
         PIMQuantConfig(backend=backend)     # rejects an unknown backend
         self.device = resolve_device(device)
         disable_tf32()
@@ -153,6 +161,10 @@ class VisionEngine:
         self.backend = backend
         self.max_batch = 1 << (max(1, max_batch).bit_length() - 1)
         self.seed = seed
+        self.autotune = autotune
+        self._tuning_cache_arg = tuning_cache
+        self.tune_cache = None
+        self._tuned: dict = {}      # (model, precision, h, w, bucket) -> tree
         self.queue: collections.deque = collections.deque()
         self._masters: dict = {}    # model -> float tree on the device
         self._packed: dict = {}     # (model, precision) -> param tree
@@ -180,6 +192,39 @@ class VisionEngine:
             self._packed[mkey] = tree
             self.prepacks += 1
         return tree
+
+    def _tuned_params(self, model: str, precision: str, shape):
+        """Tuned view of the packed tree for one (cohort, image, bucket).
+
+        Decisions are per GEMM: FC weights tune on the bucket's row count,
+        conv weights on the im2col row bound ``batch * H * W`` (the
+        stride-1 upper bound; the backend crossover is driven by the
+        plane-pair count, which the bound preserves). Attaching a decision
+        makes a new packed weight over the same tensors: no copy.
+        """
+        n, h, w, _ = shape
+        tkey = (model, precision, h, w, n)
+        tree = self._tuned.get(tkey)
+        if tree is None:
+            from repro_torch.pim import autotune as _at
+
+            if self.tune_cache is None:
+                self.tune_cache = _at.as_cache(self._tuning_cache_arg)
+            tree = _at.tune_tree(
+                self._packed[(model, precision)], m_hint=n,
+                a_bits=parse_precision(precision)[1],
+                backends=_at.default_backends(self.device),
+                mode=self.autotune, cache=self.tune_cache,
+                conv_m_hint=n * h * w, device=self.device)
+            self._tuned[tkey] = tree
+        return tree
+
+    def close(self):
+        """Engine teardown: reset the tuning cache, so a later engine
+        sharing the cache object re-reads its (possibly repaired) backing
+        file instead of serving this engine's stale fallback memo."""
+        if self.tune_cache is not None:
+            self.tune_cache.reset()
 
     # -- public API ----------------------------------------------------------
 
@@ -244,6 +289,8 @@ class VisionEngine:
             np.stack([np.asarray(r.image, np.float32) for r in group])
         ).to(self.device)
         params = self._packed_params(model, precision)
+        if precision is not None and self.autotune != "off":
+            params = self._tuned_params(model, precision, batch.shape)
         module, _ = self._models[model]
         with torch.inference_mode():
             logits = module.apply(params, batch, cfg=self._cfg(precision))

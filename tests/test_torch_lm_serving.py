@@ -236,8 +236,8 @@ def test_engine_reads_the_host_once_per_dispatch(weights, monkeypatch):
 def test_engine_refuses_later_slices_and_bad_requests(weights):
     _, tc = _cfgs()
     for kw in (dict(mesh=object()), dict(faults=object()),
-               dict(watchdog=object()), dict(autotune="cost"),
-               dict(pipeline_stages=2), dict(keep_masters=True)):
+               dict(watchdog=object()), dict(pipeline_stages=2),
+               dict(keep_masters=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             ServeEngine(tc, weights["tp"], device="cpu", **kw)
     eng = ServeEngine(tc, weights["tp"], max_batch=1, max_len=16,
@@ -247,6 +247,20 @@ def test_engine_refuses_later_slices_and_bad_requests(weights):
                           (np.zeros(12, np.int32), 5)):
         with pytest.raises(ValueError):
             eng.submit(Request(rid=0, prompt=prompt, max_new_tokens=n_new))
+
+
+def test_engine_takes_autotune_and_a_tuning_cache(weights, tmp_path):
+    """The autotuner's keywords are ported: a float engine takes them and
+    tunes nothing (no packed weight), and a bad mode is refused as the
+    reference refuses it."""
+    _, tc = _cfgs()
+    eng = ServeEngine(tc, weights["tp"], max_batch=1, max_len=16,
+                      device="cpu", autotune="cost",
+                      tuning_cache=str(tmp_path / "tune.json"))
+    assert eng.autotune == "cost" and eng.tune_cache is None
+    eng.close()
+    with pytest.raises(ValueError, match="autotune"):
+        ServeEngine(tc, weights["tp"], device="cpu", autotune="fast")
 
 
 def test_engine_defaults_to_cuda(weights):

@@ -257,14 +257,21 @@ def test_engine_takes_the_reference_constructor_at_its_defaults():
     ("mesh", object(), "mesh serving"),
     ("faults", object(), "faults and the watchdog"),
     ("watchdog", object(), "faults and the watchdog"),
-    ("fault_injector", lambda *a: None, "faults and the watchdog"),
-    ("autotune", "cost", "the autotuner"),
-    ("autotune", "measure", "the autotuner"),
-    ("tuning_cache", object(), "the autotuner")])
+    ("fault_injector", lambda *a: None, "faults and the watchdog")])
 def test_engine_names_the_slice_of_each_later_keyword(name, value, slice_):
     with pytest.raises(NotImplementedError,
                        match=f"{name}=.*{slice_} \\(ROADMAP.md Queue 1\\)"):
         VisionEngine({"resnet50": {}}, device="cpu", **{name: value})
+
+
+def test_engine_takes_autotune_and_a_tuning_cache(tmp_path):
+    """The autotuner's keywords are ported: both modes and a cache path
+    are taken, with no ``NotImplementedError``."""
+    for mode in ("cost", "measure"):
+        eng = VisionEngine({"resnet50": {}}, device="cpu", autotune=mode,
+                           tuning_cache=str(tmp_path / "tune.json"))
+        assert eng.autotune == mode and eng.tune_cache is None
+        eng.close()
 
 
 def test_engine_rejects_a_bad_autotune_like_the_reference():
