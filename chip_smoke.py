@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernel-rows   # build, then kernels 1 and 5's
                                           # timed rows only
     python3 chip_smoke.py --autotune      # build, then phase 9 only
+    python3 chip_smoke.py --faults        # build, then phase 10 only
 
 Run from the root of a checkout on a machine with an NVIDIA H100 and the
 CUDA toolkit (``nvcc`` with sm_90a). It imports nothing of JAX or of the
@@ -119,8 +120,9 @@ failed phase, without a GPU, or outside a checkout.
    core at the decode shape (path dtype and float32) and, at <8:8>, of the
    tied head (``lm_part_costs``).
    Then serves recurrentgemma-9b the same way at its published width and
-   depth (38 layers: 12 units of rglru, rglru, local_attn and two more
-   rglru; d_model and lru_width 4096, 16 query heads and one KV head of 256, window 2048,
+   11 of its 38 layers (``RG_LAYERS``: 3 units of rglru, rglru, local_attn
+   and two more rglru, the remainder its 38 layers end on; d_model and
+   lru_width 4096, 16 query heads and one KV head of 256, window 2048,
    d_ff 12288, vocab 256,000, untied head): bf16 (the float32 masters
    cast leaf by leaf, ``cast_in_place``; no bit-serial kernel may launch),
    then <8:8> on "cuda" in float32 (every projection and the head on
@@ -142,7 +144,7 @@ failed phase, without a GPU, or outside a checkout.
    Then the two archs fed by the stub frontends, through the model
    functions (a batch prefill, then decode steps), as the JAX package
    drives them (its ServeEngine and launcher refuse them; ``STUB_PATHS``):
-   musicgen-large at its published width and depth (48 layers; d_model
+   musicgen-large at its published width and 12 of its 48 layers (d_model
    2048, 32 heads of 64, d_ff 8192, the tanh gelu, layernorm, 2,048
    codes), 4 prompts of 256 stub frames (``audio_frame_embeddings``), then
    one stub frame a decode step (32 steps in bf16, 16 at <8:8>; the codes
@@ -230,6 +232,36 @@ failed phase, without a GPU, or outside a checkout.
    picks. Each tuned path's timed run has its launch counts set to 0 just
    before it and read just after, and each kernel a dispatched decision
    names must have launched.
+
+10. The fault model (``repro_torch.pim.faults``), the watchdog and
+   snapshot / restore, at ``FAULT_KW``'s rates (the persistent half alone
+   where a step says so). ResNet-50 (224 px, full depth, <8:8>, "cuda")
+   through ``VisionEngine``: fault-free; with the faults, a watchdog and
+   an injector raising once at dispatch 1 (at least one rollback, the
+   repair fixing columns; kernels 1-3 launched in the timed run, finite
+   logits; every leaf of the corrupted tree self-consistent,
+   ``check_fault_tree``; at one disturbed bucket of 8 the operands of
+   kernel 3 at each conv geometry and of kernel 2 at each 1x1 conv and
+   the FC held with ``torch.equal`` against the plain versions); with the
+   persistent half alone (a bucket launches exactly the fault-free
+   engine's kernels); and with an injector raising until the cohort is
+   degraded (then no bit-serial launch). img/s, the bucket's device ms
+   and the prepack + inject ms beside fault-free. llama3.2-3b
+   (``LLAMA_LAYERS``, full width, <8:8>, "cuda") through ``ServeEngine``,
+   the eight requests on 4 slots, greedy, ``FAULT_MAX_NEW`` tokens:
+   fault-free and persistent-only (each decode dispatch launching the
+   same kernels), faults + watchdog without and with an injector raising
+   once at dispatch 1 (equal tokens, transient disturb included),
+   a snapshot after three steps restored into an engine of another seed
+   at temperature 0.7 (equal tokens), and three failures past a budget
+   of 2 (degraded, ``cfg.pim.enabled`` false, no kernel-2 launch after);
+   tok/s with faults beside fault-free. Then kernel 2's batched entry on
+   one disturbed phi3.5-moe bank (E = 16, M = 8, 4096 x 6400) and kernel
+   4 at AlexNet conv2's im2col shape on corrupted and disturbed planes,
+   each held against its plain version (the disturbed planes equal to
+   the plain pack of the codes XOR the site's field, kernel 4's P to
+   int-direct's on that state). ``--faults`` runs the build and this
+   phase alone.
 
 Kernel 5 (the chunked WKV) is float32 arithmetic that sums in another
 order than its plain version, so it is held to the reference's tolerances
@@ -359,24 +391,26 @@ BATCHED_WRAP_ROW = (2, 8, 40000, 64)
 # each); it is served at 4, as the other LM paths below are cut.
 PHI = "phi3.5-moe-42b-a6.6b"
 PHI_LAYERS = 4
-# The served depth of two earlier LM paths, cut from their published 32
-# and 28 layers to keep the script inside its time limit beside the
-# stub-frontend paths: their serving phases are host-bound and scale with
-# depth, and the widths, the kernels each layer launches and the calls
-# they give kernel 2 stay. recurrentgemma-9b keeps its published 38
-# layers, the one path that fills the card (~69 GB at <8:8>).
+# The served depth of the earlier LM paths, cut from their published 32,
+# 28 and 38 layers to keep the script inside its time limit: their serving
+# phases are host-bound and scale with depth, and the widths, the kernels
+# each layer launches and the calls they give kernel 2 stay.
+# recurrentgemma-9b keeps three whole units and the two rglru layers its
+# 38 end on (at 38 it filled the card, ~69 GB at <8:8>).
 RWKV_LAYERS = 4
 LLAMA_LAYERS = 7
+RG_LAYERS = 11
 # The archs fed by the stub frontends. They run through the model
 # functions, as in the JAX package (its ServeEngine and launcher refuse
-# them): a batch prefill, then decode steps. musicgen-large at its
-# published 48 layers takes 4 prompts of 256 frames (5.1 s of audio at
-# EnCodec's 50 Hz); llama-3.2-vision-90b is served one unit deep (4 attn +
-# 1 cross_attn layers of its 100: a second unit would need ~76 GB at
-# <8:8>), one image of 6,400 patch embeddings and a 128-token prompt.
+# them): a batch prefill, then decode steps. musicgen-large at 12 of its
+# 48 layers (cut for time, as the paths above) takes 4 prompts of 256
+# frames (5.1 s of audio at EnCodec's 50 Hz); llama-3.2-vision-90b is
+# served one unit deep (4 attn + 1 cross_attn layers of its 100: a second
+# unit would need ~76 GB at <8:8>), one image of 6,400 patch embeddings
+# and a 128-token prompt.
 MUSICGEN = "musicgen-large"
 VISION = "llama-3.2-vision-90b"
-STUB_PATHS = {MUSICGEN: dict(layers=48, batch=4, prompt=256),
+STUB_PATHS = {MUSICGEN: dict(layers=12, batch=4, prompt=256),
               VISION: dict(layers=5, batch=1, prompt=128)}
 STUB_MAX_LEN = 256 + 32
 # Rows (N, H, C, O, k, stride, pad) of kernel 3 at <8:8>: the convs the
@@ -942,6 +976,20 @@ class KernelChecks:
             km.bitserial_matmul_fused(qa, pw, a_bits, w_bits),
             km.bitserial_matmul_fused_plain(qa, pw, a_bits, w_bits), None,
             None, None, 0, 0, timing=False, plan=self._plan(m, n, kw))
+
+    def served_packed(self, label, pa, pw, a_bits, w_bits):
+        """Kernel 4 on operands a served path gave it, untimed: equal to
+        its plain version at that call's own launch plan."""
+        from repro_torch.kernels import bitserial_matmul as km
+
+        _, m, kw = pa.shape
+        n = pw.shape[1]
+        self._record(
+            "bitserial_matmul_packed", dict(served=label, M=m, K=kw * 32,
+                                            N=n), f"<{w_bits}:{a_bits}>",
+            km.bitserial_matmul_packed(pa, pw, a_bits, w_bits),
+            km.packed_matmul_plain(pa, pw), None, None, None, 0, 0,
+            timing=False, plan=self._plan(m, n, kw))
 
     def wkv(self, bh, s, d, chunk, timing=True, strided=False):
         """Kernel 5 against its plain chunked version on the reference
@@ -2307,7 +2355,10 @@ def lm_pim_gpu_vs_cpu(torch, np, ops, arch, block_pattern=None,
         if not (torch.equal(w.wq.scale, g.wq.scale)
                 and torch.equal(w.wq.qmin, g.wq.qmin)):
             raise AssertionError(f"prepacked {path} scale/qmin: card != CPU")
-    call_err, on_cpu = 0.0, {}
+    # A card leaf, held equal to the CPU's prepack just above, is recomputed
+    # against the CPU's own leaf; any other weight is copied to the CPU.
+    on_cpu = {id(gpu_leaves[path]): w for path, w in leaves.items()}
+    call_err = 0.0
     for a, w, kw, y in calls:
         # A PackedWeight, or a tied head's float weight (a new view of the
         # embedding at every call).
@@ -2995,10 +3046,490 @@ def autotune_phase(torch, np, ops, imgs):
             torch.cuda.empty_cache()
 
 
+# -- 10. the fault model, the watchdog and snapshot / restore ----------------
+
+# Phase 10's fault rates; "persistent only" drops the read disturb.
+FAULT_KW = dict(write_ber=1e-4, retention_ber=1e-5, stuck0_rate=1e-5,
+                stuck1_rate=1e-5, subarray_fail_rate=1e-3,
+                read_disturb_ber=1e-6, protect_msb=2, vote_copies=3,
+                checksum=True, spare_cols=8, seed=0)
+FAULT_MAX_NEW = 8          # new tokens a request on phase 10's LM engines
+
+
+def fault_configs():
+    """(full, persistent only) FaultConfigs of phase 10."""
+    from repro_torch.pim.faults import FaultConfig
+
+    full = FaultConfig(**FAULT_KW)
+    return full, FaultConfig(**dict(FAULT_KW, read_disturb_ber=0.0))
+
+
+def raise_at(plan):
+    """A fault injector raising at dispatch d as many times as ``plan[d]``
+    says (a test hook of both engines)."""
+    left = dict(plan)
+
+    def inj(d):
+        if left.get(d, 0) > 0:
+            left[d] -= 1
+            raise RuntimeError(f"injected fault at dispatch {d}")
+    return inj
+
+
+class recorded_packed:
+    """While open, keeps the operands of kernel 4's calls (on the card, as
+    given) in ``calls``; every call runs the kernel as before."""
+
+    def __enter__(self):
+        from repro_torch.kernels import bitserial_matmul as km
+
+        self.module, self.kernel, self.calls = km, km.bitserial_matmul_packed, []
+
+        def spy(pa, pw, a_bits, w_bits, **tiles):
+            self.calls.append((pa.clone(), pw.clone(), a_bits, w_bits))
+            return self.kernel(pa, pw, a_bits, w_bits, **tiles)
+
+        km.bitserial_matmul_packed = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.bitserial_matmul_packed = self.kernel
+
+
+def check_fault_tree(torch, tree, golden, label) -> dict:
+    """A corrupted packed tree is self-consistent: every leaf's planes are
+    the plain pack of its corrupted codes (a conv's ``fused_planes`` the
+    plain fused pack too), its ``col_sums`` the golden tree's, and
+    ``verify_columns`` flags exactly the columns whose code sums moved,
+    each of them a column whose codes differ from golden. Columns whose
+    codes differ with the sum kept (flips that cancel) escape the
+    checksum; they are counted, not failed."""
+    from repro_torch.core.packed import PackedConvWeight, PackedWeight
+    from repro_torch.kernels.bitplane_pack import bitplane_pack_plain
+    from repro_torch.pim.faults import verify_columns
+
+    out = dict(leaves=0, columns=0, differing=0, flagged=0, escaped=0)
+
+    def check(pw, gw, conv=None):
+        codes, bits = pw.codes32, pw.bits
+        if not torch.equal(pw.planes, bitplane_pack_plain(
+                codes.T.contiguous(), bits)):
+            raise AssertionError(f"{label}: planes != plain pack of codes")
+        if conv is not None:
+            kh, kw, c, o = conv.kernel_shape
+            fused = bitplane_pack_plain(codes.reshape(kh, kw, c, o).permute(
+                0, 3, 1, 2).contiguous(), bits).permute(1, 0, 2, 3, 4)
+            if not torch.equal(conv.fused_planes, fused):
+                raise AssertionError(f"{label}: fused planes != plain")
+        if not torch.equal(pw.col_sums, gw.col_sums):
+            raise AssertionError(f"{label}: col_sums left golden")
+        flags = verify_columns(pw)
+        moved = codes.to(torch.int64).sum(0) != gw.col_sums.to(torch.int64)
+        differ = (codes != gw.codes32).any(0)
+        if not torch.equal(flags, moved) or bool((flags & ~differ).any()):
+            raise AssertionError(f"{label}: verify_columns flags the wrong "
+                                 "columns")
+        out["leaves"] += 1
+        out["columns"] += int(flags.numel())
+        out["differing"] += int(differ.sum())
+        out["flagged"] += int(flags.sum())
+        out["escaped"] += int((differ & ~flags).sum())
+
+    def walk(p, g):
+        if isinstance(p, PackedConvWeight):
+            check(p.mat, g.mat, p)
+        elif isinstance(p, PackedWeight):
+            check(p, g)
+        elif isinstance(p, dict):
+            for k in p:
+                walk(p[k], g[k])
+
+    walk(tree, golden)
+    return out
+
+
+def faults_vision(torch, np, ops, kc, imgs):
+    """ResNet-50 (224 px, <8:8>, "cuda") through ``VisionEngine``: a
+    fault-free engine, one with phase 10's faults, a watchdog and an
+    injector raising once at dispatch 1, one with the persistent half
+    alone, and one whose injector raises until its cohort is degraded."""
+    from repro_torch.models.cnn import resnet
+    from repro_torch.serving import VisionEngine, VisionRequest
+    from repro_torch.training.fault_tolerance import WatchdogConfig
+
+    full, persistent = fault_configs()
+    params = resnet.init(torch.Generator().manual_seed(0), num_classes=1000,
+                         image=224)
+    mkey = ("resnet50", "<8:8>")
+
+    def engine(**kw):
+        return VisionEngine({"resnet50": params}, backend="cuda",
+                            max_batch=8, **kw)
+
+    def serve(eng, n):
+        for rid in range(n):
+            eng.submit(VisionRequest(rid=rid, image=imgs[rid],
+                                     model="resnet50"))
+        t = time.perf_counter()
+        done = eng.run(strict=True)
+        torch.cuda.synchronize()
+        return sorted(done, key=lambda c: c.rid), time.perf_counter() - t
+
+    def deploy_ms(eng):
+        t = time.perf_counter()
+        eng._packed_params(*mkey)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    def bucket_launches(eng):
+        ops.reset_launch_counts()
+        serve(eng, 8)
+        return ops.launch_counts()
+
+    def finite(done, label):
+        if not all(np.isfinite(c.logits).all() and c.logits.shape == (1000,)
+                   for c in done):
+            raise AssertionError(f"{label}: non-finite or misshapen logits")
+
+    rows = {}
+    with phase("faults resnet50 fault-free"), no_plain_pack():
+        deploy_ms(engine())                  # first use's costs, unmeasured
+        eng = engine()
+        prepack_ms = deploy_ms(eng)
+        serve(eng, 12)
+        _, dt = serve(eng, 12)
+        clean_bucket = bucket_launches(eng)
+        prof = profile_call(torch, lambda: serve(eng, 8))
+        rows["fault-free"] = dict(img_per_s=12 / dt, prepack_ms=prepack_ms,
+                                  bucket_of_8_device_ms=prof["device_ms"],
+                                  bucket_of_8_wall_ms=prof["wall_ms"],
+                                  idle_share=prof["idle_share"],
+                                  launches_per_bucket_of_8=clean_bucket)
+        del eng
+    with phase("faults resnet50 faults + watchdog"):
+        eng = engine(faults=full, fault_injector=raise_at({1: 1}),
+                     watchdog=WatchdogConfig(max_failures=3, backoff_s=0.0))
+        with no_plain_pack():
+            with prepack_packs() as packs:
+                inject_ms = deploy_ms(eng)
+            packed = packs.check("resnet50 faults prepack + inject")
+            serve(eng, 12)                       # the injector fires here
+            ops.reset_launch_counts()
+            done, dt = serve(eng, 12)
+            launches = ops.launch_counts()
+            finite(done, "resnet50 faults")
+            missing = [k for k in PATH_KERNELS["cuda"] if not launches[k]]
+            if missing:
+                raise AssertionError(f"resnet50 faults: {missing} never "
+                                     f"launched: {launches}")
+            with recorded_convs() as convs, recorded_matmuls() as mms:
+                serve(eng, 8)                    # one disturbed dispatch
+            fault_bucket = bucket_launches(eng)
+            prof = profile_call(torch, lambda: serve(eng, 8))
+        h = eng.health
+        if h["rollbacks"] < 1 or h["repairs"] < 1 or h["repaired_cols"] < 1:
+            raise AssertionError(f"resnet50 faults: health {h}")
+        tree = check_fault_tree(torch, eng._packed[mkey], eng._golden[mkey],
+                                "resnet50")
+        rows["faults"] = dict(img_per_s=12 / dt,
+                              prepack_inject_ms=inject_ms,
+                              bucket_of_8_device_ms=prof["device_ms"],
+                              bucket_of_8_wall_ms=prof["wall_ms"],
+                              idle_share=prof["idle_share"],
+                              launches=launches,
+                              launches_per_bucket_of_8=fault_bucket,
+                              health=h, tree=tree, **packed)
+        del eng
+    with phase("faults resnet50 disturbed operands"):
+        n8 = [c for c in served_conv_calls("resnet50") if c[0] == 8]
+        got = sorted((geo["n"], geo["hp"], geo["c"], pw.shape[2],
+                      pw.shape[0], geo["stride"], geo["oh"])
+                     for _, pw, geo in convs.calls.values())
+        if got != n8:
+            raise AssertionError(f"resnet50 faults: kernel 3 ran at {got}, "
+                                 f"the bucket of 8 serves {n8}")
+        for pa, pw, geo in convs.calls.values():
+            kc.served_conv("resnet50 disturbed", pa, pw, geo)
+        for qa, pw, a_bits in mms.calls.values():
+            kc.served_matmul("resnet50 disturbed", qa.cuda(), pw.cuda(),
+                             a_bits)
+        rows["disturbed_dispatch"] = dict(kernel3_calls=len(convs.calls),
+                                          kernel2_calls=len(mms.calls))
+        del convs, mms
+    with phase("faults resnet50 persistent only"), no_plain_pack():
+        eng = engine(faults=persistent)
+        serve(eng, 8)
+        bucket = bucket_launches(eng)
+        if bucket != clean_bucket:
+            raise AssertionError("resnet50 persistent faults: a bucket "
+                                 f"launched {bucket}, fault-free "
+                                 f"{clean_bucket}")
+        rows["persistent_only"] = dict(launches_per_bucket_of_8=bucket)
+        del eng
+    with phase("faults resnet50 degraded cohort"), no_plain_pack():
+        box = {}
+
+        def until_degraded(d):
+            if mkey not in box["eng"].health["degraded"]:
+                raise RuntimeError("sustained fault")
+
+        eng = box["eng"] = engine(faults=full, fault_injector=until_degraded,
+                                  watchdog=WatchdogConfig(max_failures=1,
+                                                          backoff_s=0.0))
+        done, _ = serve(eng, 8)
+        finite(done, "resnet50 degraded")
+        ops.reset_launch_counts()
+        done, _ = serve(eng, 8)
+        finite(done, "resnet50 degraded")
+        launches = ops.launch_counts()
+        stray = [k for k in BITSERIAL_KERNELS if launches[k]]
+        if eng.health["degraded"] != [mkey] or stray:
+            raise AssertionError(f"resnet50 degraded: health {eng.health}, "
+                                 f"bit-serial launches {launches}")
+        rows["degraded"] = dict(health=eng.health, launches=launches)
+        del eng
+    print(json.dumps(dict(faults_serving="resnet50", precision="<8:8>",
+                          backend="cuda", fault_config=FAULT_KW, **rows)),
+          flush=True)
+    return rows
+
+
+def faults_lm(torch, np, ops):
+    """llama3.2-3b (``LLAMA_LAYERS``, full width, <8:8> "cuda") through
+    ``ServeEngine``: the eight requests on 4 slots, greedy, fault-free,
+    with the persistent half alone, with phase 10's faults and a watchdog
+    (without and with an injector raising once at dispatch 1), a snapshot
+    restored into an engine of another seed at temperature 0.7, and
+    sustained failures degrading the engine to the float path."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import PIMQuantConfig
+    from repro_torch.models.lm import model as lm
+    from repro_torch.serving import Request, SamplerConfig, ServeEngine
+    from repro_torch.training.fault_tolerance import WatchdogConfig
+
+    full, persistent = fault_configs()
+    cfg = dataclasses.replace(get_config("llama3.2-3b").model,
+                              n_layers=LLAMA_LAYERS, dtype="float32",
+                              pim=PIMQuantConfig(8, 8, backend="cuda"))
+    params = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                     device="cuda")
+    prompts = lm_prompts(np, cfg.vocab)
+
+    def engine(temperature=0.0, **kw):
+        t = time.perf_counter()
+        eng = ServeEngine(cfg, params, max_batch=LM_MAX_BATCH,
+                          max_len=LM_MAX_LEN,
+                          sampler=SamplerConfig(temperature=temperature),
+                          device="cuda", **kw)
+        torch.cuda.synchronize()
+        eng.deploy_ms = (time.perf_counter() - t) * 1e3
+        return eng
+
+    def submit(eng):
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p,
+                               max_new_tokens=FAULT_MAX_NEW))
+
+    def serve(eng, dispatches=None, stats=None):
+        """Run the eight requests. Each decode dispatch is timed on the
+        host (it ends in the host read); with ``dispatches``, the first
+        dispatch of each step count keeps its launches; with ``stats``,
+        generated tok/s (prefill included) and decode tok/s."""
+        real = eng._decode_n
+        dec = {"s": 0.0, "steps": 0}
+
+        def counted(n):
+            before = ops.launch_counts()
+            t = time.perf_counter()
+            out = real(n)
+            dec["s"] += time.perf_counter() - t
+            dec["steps"] += n
+            after = ops.launch_counts()
+            if dispatches is not None:
+                dispatches.setdefault(n, {k: after[k] - before[k]
+                                          for k in after})
+            return out
+
+        eng._decode_n = counted
+        submit(eng)
+        t = time.perf_counter()
+        done = eng.run(strict=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        del eng._decode_n
+        toks = {c.rid: c.tokens for c in done}
+        if sorted(len(v) for v in toks.values()) != [FAULT_MAX_NEW] * 8:
+            raise AssertionError(f"llama faults: wrong completions {toks}")
+        if stats is not None:
+            n_tok = sum(len(v) for v in toks.values())
+            stats.update(tok_per_s=n_tok / wall,
+                         decode_tok_per_s=(n_tok - len(toks)) / dec["s"],
+                         decode_step_ms=dec["s"] * 1e3 / dec["steps"],
+                         deploy_ms=eng.deploy_ms)
+        return toks
+
+    rows = {"fault_free": {}, "persistent_only": {}, "faults": {}}
+    with phase("faults llama3.2-3b fault-free and persistent"), \
+            no_plain_pack():
+        clean, persist = {}, {}
+        eng = engine()
+        serve(eng)                           # first use's costs, unmeasured
+        serve(eng, clean, rows["fault_free"])
+        eng.close()
+        eng = engine(faults=persistent)
+        serve(eng, persist, rows["persistent_only"])
+        eng.close()
+        if persist != clean:
+            raise AssertionError("llama persistent faults: decode "
+                                 f"dispatches launched {persist}, fault-free "
+                                 f"{clean}")
+        rows["decode_dispatch_launches"] = clean
+    with phase("faults llama3.2-3b transient + watchdog"), no_plain_pack():
+        wd = WatchdogConfig(max_failures=3, backoff_s=0.0)
+        eng = engine(faults=full, watchdog=wd)
+        transient = {}
+        want = serve(eng, transient, rows["faults"])
+        rows["faults"]["decode_dispatch_launches"] = transient
+        eng.close()
+        eng = engine(faults=full, watchdog=wd,
+                     fault_injector=raise_at({1: 1}))
+        got = serve(eng)
+        if got != want or eng.health["rollbacks"] < 1:
+            raise AssertionError(f"llama rollback: tokens {got} vs {want}, "
+                                 f"health {eng.health}")
+        rows["rollback_health"] = dict(eng.health)
+        eng.close()
+    with phase("faults llama3.2-3b snapshot / restore"), no_plain_pack():
+        tmp = tempfile.mkdtemp()
+        try:
+            eng = engine(temperature=0.7, faults=full, seed=0)
+            submit(eng)
+            for _ in range(3):
+                eng.step()
+            eng.snapshot(tmp, step=3)
+            want = {c.rid: c.tokens for c in eng.run(strict=True)}
+            eng.close()
+            eng = engine(temperature=0.7, faults=full, seed=1)
+            manifest = eng.restore(tmp)
+            got = {c.rid: c.tokens for c in eng.run(strict=True)}
+            eng.close()
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        if got != want or not want:
+            raise AssertionError(f"llama snapshot / restore: {got} vs {want}")
+        rows["snapshot"] = dict(completions=len(got),
+                                extra_keys=sorted(manifest["extra"]))
+    with phase("faults llama3.2-3b degrade to float"), no_plain_pack():
+        eng = engine(faults=full, fault_injector=raise_at({0: 3}),
+                     watchdog=WatchdogConfig(max_failures=2, backoff_s=0.0))
+        serve(eng)
+        ops.reset_launch_counts()
+        serve(eng)
+        launches = ops.launch_counts()
+        if not eng.health["degraded"] or eng.cfg.pim.enabled or \
+                launches["bitserial_matmul_fused"]:
+            raise AssertionError(f"llama degrade: health {eng.health}, pim "
+                                 f"{eng.cfg.pim}, launches {launches}")
+        rows["degraded"] = dict(health=dict(eng.health), launches=launches)
+        eng.close()
+    print(json.dumps(dict(faults_serving="llama3.2-3b", layers=cfg.n_layers,
+                          precision="<8:8>", backend="cuda",
+                          requests=len(prompts), max_new=FAULT_MAX_NEW,
+                          fault_config=FAULT_KW, **rows)), flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return rows
+
+
+def faults_kernels(torch, kc):
+    """Kernel 2's batched entry on one disturbed phi3.5-moe bank (E = 16,
+    M = 8, 4096 x 6400) and kernel 4 at AlexNet conv2's im2col shape on
+    corrupted and disturbed planes, each held against its plain version;
+    the disturbed planes are the plain pack of the codes XOR the site's
+    field, and kernel 4's P equals int-direct's on that state."""
+    from repro_torch.core import bitserial, packed
+    from repro_torch.kernels.bitplane_pack import bitplane_pack_plain
+    from repro_torch.pim import faults as F
+
+    full, persistent = fault_configs()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    with phase("faults kernel 2 batched, disturbed bank"):
+        with no_plain_pack():
+            bank = packed.prepack(torch.randn((16, 4096, 6400), generator=gen,
+                                              device="cuda"), 8)
+        qa = torch.randint(0, 256, (16, 8, 4096), generator=gen,
+                           device="cuda", dtype=torch.int32)
+        with recorded_matmuls() as rec, no_plain_pack(), \
+                F.read_disturb_scope(full, F.Key.root(0).fold_in(23)):
+            p = bitserial.int_matmul_prepacked_bank(qa, bank, 8, "cuda")
+            field = F._READ_FIELDS[0]["field"]
+        (qa_h, pw_h, a_bits), = rec.bank_calls.values()
+        pw_d = pw_h.cuda()
+        for e in (0, 15):
+            want = bitplane_pack_plain(
+                (bank.codes[e] ^ field).to(torch.int32).T.contiguous(), 8)
+            if not torch.equal(pw_d[e], want):
+                raise AssertionError(f"disturbed bank expert {e}: planes != "
+                                     "plain pack of codes ^ field")
+        kc.served_bank("phi3.5-moe disturbed", qa, pw_d, a_bits)
+        out["bank_flipped_bits"] = int(sum(
+            ((field >> b) & 1).sum().item() for b in range(8)))
+        del bank, qa, pw_d, p, field, rec
+        torch.cuda.empty_cache()
+    with phase("faults kernel 4, corrupted and disturbed planes"):
+        m, k, n = 8 * 27 * 27, 2400, 256          # AlexNet conv2's im2col
+        with no_plain_pack():
+            clean = packed.prepack(torch.randn((k, n), generator=gen,
+                                               device="cuda"), 8)
+            bad = F.inject_packed(clean, persistent, F.Key.root(0).fold_in(5))
+        if not torch.equal(bad.planes, bitplane_pack_plain(
+                bad.codes32.T.contiguous(), 8)):
+            raise AssertionError("corrupted planes != plain pack of codes")
+        qa = torch.randint(0, 256, (m, k), generator=gen, device="cuda",
+                           dtype=torch.int32)
+        with recorded_packed() as rec, no_plain_pack(), \
+                F.read_disturb_scope(full, F.Key.root(0).fold_in(6)):
+            p4 = bitserial.int_matmul_prepacked(qa, bad, 8, "popcount")
+            field = F._READ_FIELDS[0]["field"]
+        (pa, pw, a_bits, w_bits), = rec.calls
+        kc.served_packed("alexnet conv2 corrupted+disturbed", pa, pw,
+                         a_bits, w_bits)
+        direct = bitserial.int_matmul_direct(qa, bad.codes ^ field)
+        if not torch.equal(p4, direct):
+            raise AssertionError("kernel 4 on disturbed planes != int-direct "
+                                 "on the disturbed codes")
+        out["kernel4_corrupted_codes"] = int(
+            (bad.codes != clean.codes).sum().item())
+        out["kernel4_disturbed_bits"] = int(sum(
+            ((field >> b) & 1).sum().item() for b in range(8)))
+    print(json.dumps(dict(faults_kernels=out)), flush=True)
+    return out
+
+
+def fault_phase(torch, np, ops, kc, imgs):
+    """Phase 10: the fault model, the watchdog and snapshot / restore on
+    both engines, and kernels 2 (batched) and 4 on faulty planes."""
+    t = time.perf_counter()
+    vision = faults_vision(torch, np, ops, kc, imgs)
+    torch.cuda.empty_cache()
+    lmrows = faults_lm(torch, np, ops)
+    kernels = faults_kernels(torch, kc)
+    print(json.dumps(dict(fault_phase_s=time.perf_counter() - t)),
+          flush=True)
+    return vision, lmrows, kernels
+
+
 def main(argv) -> int:
     kernel_rows = "--kernel-rows" in argv
     autotune_only = "--autotune" in argv
-    unknown = [a for a in argv if a not in ("--kernel-rows", "--autotune")]
+    faults_only = "--faults" in argv
+    unknown = [a for a in argv
+               if a not in ("--kernel-rows", "--autotune", "--faults")]
     if unknown:
         print(f"chip_smoke.py: unknown arguments {unknown}", file=sys.stderr)
         return 2
@@ -3054,6 +3585,9 @@ def main(argv) -> int:
           f"{INT8_OPS_PER_S:.4g} op/s; {props.multi_processor_count} SMs at "
           f"{clock_mhz:.0f} MHz", flush=True)
     kc = KernelChecks(torch, clock_mhz * 1e6)
+    if faults_only:
+        fault_phase(torch, np, ops, kc, imgs)
+        return 0
     if kernel_rows:
         with phase("kernels 1 and 5, timed rows"):
             for row in PACK_ROWS:
@@ -3204,7 +3738,8 @@ def main(argv) -> int:
     del calls
 
     # -- 7c. serving recurrentgemma-9b (RG-LRU + local attention) --------------
-    arch = get_config("recurrentgemma-9b").model
+    arch = dataclasses.replace(get_config("recurrentgemma-9b").model,
+                               n_layers=RG_LAYERS)
     with phase("serve recurrentgemma-9b bf16"), no_plain_pack():
         params = lm.init(arch, torch.Generator(device="cuda").manual_seed(0),
                          device="cuda")
@@ -3251,7 +3786,7 @@ def main(argv) -> int:
         check_served_matmuls(np, kc, PHI, calls)
     del calls
 
-    # -- 7e. the stub frontends: musicgen-large (48 layers) and one unit of
+    # -- 7e. the stub frontends: musicgen-large (12 layers) and one unit of
     # llama-3.2-vision-90b (4 attn + 1 cross_attn) at full width ---------------
     for name, bf16_steps in ((MUSICGEN, 32), (VISION, 16)):
         arch = dataclasses.replace(get_config(name).model,
@@ -3323,6 +3858,9 @@ def main(argv) -> int:
 
     # -- 9. the autotuner --------------------------------------------------------
     autotune_phase(torch, np, ops, imgs)
+
+    # -- 10. the fault model, the watchdog and snapshot / restore ---------------
+    fault_phase(torch, np, ops, kc, imgs)
 
     kernels = [
         summary(kc.rows, "bitplane_pack", launches["bitplane_pack"],

@@ -49,6 +49,10 @@ def _kernels():
     return ops
 
 
+# Weight codes a CPU ``int_matmul_direct`` converts to float64 at a time.
+_DIRECT_BLOCK = 1 << 20
+
+
 def _wrap_int32(p: torch.Tensor) -> torch.Tensor:
     """int64 values -> int32 with the same low 32 bits (mod 2^32)."""
     return bitslice.to_int32_bits(p & 0xFFFFFFFF)
@@ -103,9 +107,18 @@ def int_matmul_direct(qa: torch.Tensor, qw: torch.Tensor, a_bits: int = 0,
 
     CUDA has no int32 matmul, so the product runs in float64: exact while
     every partial sum is below 2^53, i.e. (2^b - 1)^2 * K < 2^53 for codes
-    of b bits (K < 1.3e11 at 8 bits, K < 2.1e6 at 16).
+    of b bits (K < 1.3e11 at 8 bits, K < 2.1e6 at 16). On the CPU the
+    weight codes go to float64 a block of columns at a time, so that each
+    block is read from cache rather than a float64 copy of the whole weight
+    from memory (a vocabulary head holds 10^8-10^9 codes).
     """
-    p = qa.to(torch.float64) @ qw.to(torch.float64)
+    a = qa.to(torch.float64)
+    if qa.device.type != "cpu":
+        p = a @ qw.to(torch.float64)
+    else:
+        step = max(1, _DIRECT_BLOCK // max(1, qw.numel() // qw.shape[-1]))
+        p = torch.cat([a @ qw[..., i:i + step].to(torch.float64)
+                       for i in range(0, qw.shape[-1], step)], -1)
     return _wrap_int32(p.to(torch.int64))
 
 
@@ -126,9 +139,11 @@ def _pack_codes(qw: torch.Tensor, wq: QuantParams,
 
 
 def int_matmul(qa, qw, a_bits, w_bits, backend="popcount"):
+    """P = qa @ qw on ``backend`` from the codes (no read disturb: the
+    reference's ``int_matmul`` reads no stored array)."""
     unit = QuantParams(torch.ones((), device=qw.device),
                        torch.zeros((), device=qw.device), w_bits)
-    return int_matmul_prepacked(qa, _pack_codes(qw, unit), a_bits, backend)
+    return _int_matmul_packed(qa, _pack_codes(qw, unit), a_bits, backend)
 
 
 def _tiles(w: PackedWeight) -> dict:
@@ -152,9 +167,31 @@ def int_matmul_prepacked(qa: torch.Tensor, w: PackedWeight, a_bits: int,
     ``backend`` and supplies the tile requests of kernels 2 (``cuda``) and
     4 (``popcount``). Tuning redirects dispatch only: every backend and
     plan computes the same P bit for bit.
+
+    Inside an active :func:`repro_torch.pim.faults.read_disturb_scope`
+    every call reads a freshly disturbed view of the stored weight (STT-
+    MRAM read disturb): the site's flip field XOR-ed into the form the
+    backend reads. Outside a scope nothing extra runs.
     """
     if w.tune is not None:
         backend = w.tune.backend
+    return _int_matmul_packed(qa, _disturbed(w, backend), a_bits, backend)
+
+
+def _disturbed(w: PackedWeight, backend: str) -> PackedWeight:
+    """``w`` as one read under an active read-disturb scope sees it (``w``
+    itself outside one)."""
+    from repro_torch.pim import faults   # lazy: pim imports core
+
+    if not faults.read_disturb_active():
+        return w
+    return faults.disturb_packed(
+        w, reads="codes" if backend in CODE_BACKENDS else "planes")
+
+
+def _int_matmul_packed(qa: torch.Tensor, w: PackedWeight, a_bits: int,
+                       backend: str) -> torch.Tensor:
+    """The product on the resolved ``backend``."""
     w_bits = w.bits
     if backend == "int-direct":
         return int_matmul_direct(qa, w.codes)
@@ -182,10 +219,13 @@ def int_matmul_prepacked_bank(qa: torch.Tensor, w: PackedWeight, a_bits: int,
     packs every expert's codes in one pack, then runs kernel 4 expert by
     expert; ``mxu-plane`` runs expert by expert. ``w.tune`` overrides
     ``backend`` and supplies tile requests, as in
-    :func:`int_matmul_prepacked`.
+    :func:`int_matmul_prepacked`. Under a read-disturb scope the bank
+    takes one flip field for all its experts, as the reference's ``vmap``
+    draws it.
     """
     if w.tune is not None:
         backend = w.tune.backend
+    w = _disturbed(w, backend)
     e, m, k = qa.shape
     ops = _kernels()
     if backend == "cuda":

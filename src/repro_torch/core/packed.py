@@ -177,15 +177,61 @@ def prepack(w: torch.Tensor, w_bits: int) -> PackedWeight:
 
 def _prepack_bank(w: torch.Tensor, w_bits: int) -> PackedWeight:
     """An (E, K, N) bank: each expert calibrated on itself, and the whole
-    bank's planes in one pack (the (E*N, K) rows of the codes' transpose,
-    then a permute to (E, bits, N, KW))."""
-    e, k, n = w.shape
+    bank's planes in one pack (:func:`_pack_bank_planes`)."""
     wq = calibrate_minmax(w, w_bits, per_expert=True)
     codes = quantize(w, wq.per_expert())                # (E, K, N)
-    planes = pack_planes(codes.transpose(1, 2).reshape(e * n, k), w_bits)
-    planes = planes.reshape(w_bits, e, n, -1).transpose(0, 1).contiguous()
-    return PackedWeight(codes=narrow_codes(codes, w_bits), planes=planes,
+    return PackedWeight(codes=narrow_codes(codes, w_bits),
+                        planes=_pack_bank_planes(codes, w_bits),
                         col_sums=codes.sum(1, dtype=torch.int32), wq=wq)
+
+
+def _pack_bank_planes(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """The planes of (E, K, N) bank codes in one pack: the (E*N, K) rows
+    of their transpose, then a permute to (E, bits, N, KW)."""
+    e, k, n = codes.shape
+    planes = pack_planes(codes.transpose(1, 2).reshape(e * n, k), bits)
+    return planes.reshape(bits, e, n, -1).transpose(0, 1).contiguous()
+
+
+def repack_codes(pw: PackedWeight, codes: torch.Tensor) -> PackedWeight:
+    """Re-program a packed weight's subarrays with new integer codes.
+
+    ``codes`` (K, N), or (E, K, N) for a bank, as ``uint8`` or int32.
+    The planes are re-derived from them (one pack, a bank's in one pack as
+    ``prepack`` packs it); the digital periphery state (``col_sums``,
+    ``wq``) and ``tune`` are kept as they are. This is the primitive
+    behind fault injection and spare-column repair
+    (:mod:`repro_torch.pim.faults`): the array image changes, the
+    periphery's golden Sw register does not.
+    """
+    bits = pw.bits
+    codes32 = codes.to(torch.int32)
+    planes = (_pack_bank_planes(codes32, bits) if codes.dim() == 3
+              else pack_planes(codes32.T.contiguous(), bits))
+    return dataclasses.replace(pw, codes=narrow_codes(codes32, bits),
+                               planes=planes)
+
+
+def pack_fused_planes(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """(KH, KW, C, O) codes -> the fused layout (KH, bits, O, KW, CW): per
+    kernel row kh, O-major, channels packed into words (one pack)."""
+    kh, kw, c, o = codes.shape
+    wt = codes.permute(0, 3, 1, 2).contiguous()          # (KH, O, KW, C)
+    fused = pack_planes(wt.reshape(kh * o * kw, c), bits).reshape(
+        bits, kh, o, kw, -1)                             # (bits, KH, O, KW, CW)
+    return fused.permute(1, 0, 2, 3, 4).contiguous()     # (KH, bits, O, KW, CW)
+
+
+def repack_conv_codes(pcw: PackedConvWeight, flat_codes: torch.Tensor
+                      ) -> PackedConvWeight:
+    """Conv analog of :func:`repack_codes`: new (KH*KW*C, O) im2col codes,
+    both lowering layouts (``mat`` and ``fused_planes``) rebuilt so they
+    describe the same device state."""
+    flat32 = flat_codes.to(torch.int32)
+    return dataclasses.replace(
+        pcw, mat=repack_codes(pcw.mat, flat32),
+        fused_planes=pack_fused_planes(flat32.reshape(pcw.kernel_shape),
+                                   pcw.bits))
 
 
 def prepack_conv(w: torch.Tensor, w_bits: int) -> PackedConvWeight:
@@ -200,10 +246,5 @@ def prepack_conv(w: torch.Tensor, w_bits: int) -> PackedConvWeight:
         col_sums=flat.sum(0, dtype=torch.int32),
         wq=wq,
     )
-    # Fused layout: per kernel row kh, O-major, channels packed into words.
-    wt = codes.permute(0, 3, 1, 2).contiguous()          # (KH, O, KW, C)
-    fused = pack_planes(wt.reshape(kh * o * kw, c), w_bits).reshape(
-        w_bits, kh, o, kw, -1)                           # (bits, KH, O, KW, CW)
-    fused = fused.permute(1, 0, 2, 3, 4).contiguous()    # (KH, bits, O, KW, CW)
-    return PackedConvWeight(mat=mat, fused_planes=fused,
+    return PackedConvWeight(mat=mat, fused_planes=pack_fused_planes(codes, w_bits),
                             kernel_shape=(kh, kw, c, o))

@@ -60,7 +60,9 @@ def calibrate_minmax(x: torch.Tensor, bits: int,
         dims = tuple(range(1, x.dim()))
         qmin, qmax = x.amin(dim=dims), x.amax(dim=dims)
     else:
-        qmin, qmax = x.min(), x.max()
+        if x.dim() == 2 and not x.is_contiguous() and x.T.is_contiguous():
+            x = x.T    # a transposed weight (a tied head), read in order
+        qmin, qmax = torch.aminmax(x)      # one pass over x
     # Guard the degenerate all-constant tensor; scale must stay positive.
     span = torch.clamp_min(qmax - qmin, torch.finfo(torch.float32).tiny)
     # A tensor divisor, not a Python number: CUDA PyTorch divides by a CPU

@@ -41,8 +41,9 @@ launches = 0          # bitserial_matmul_fused
 packed_launches = 0   # bitserial_matmul_packed
 batched_launches = 0  # bitserial_matmul_fused_batched
 
-# Bound on the elements of one broadcast AND in the plain versions.
-_PLAIN_CHUNK = 1 << 22
+# Bound on the elements of one float64 operand (or product) of the plain
+# versions' bit matmuls.
+_PLAIN_CHUNK = 1 << 24
 
 _ARGTYPES = {
     "repro_bitserial_matmul_fused": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
@@ -111,21 +112,48 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def plane_bits(words: torch.Tensor) -> torch.Tensor:
+    """(..., KW) int32 words -> (..., 32 * KW) float64 0/1: bit j of word w
+    at 32 * w + j (``>>`` of an int32 is arithmetic, and ``& 1`` keeps bit
+    j alone, the sign bit's too)."""
+    shifts = torch.arange(bitslice.LANE_BITS, dtype=torch.int32,
+                          device=words.device)
+    return ((words[..., None] >> shifts) & 1).flatten(-2).to(torch.float64)
+
+
+def count_pairs(a: torch.Tensor, w_planes, a_bits: int) -> torch.Tensor:
+    """sum_{x, y} 2^(x+y) * popcount(a_x & w_y) in int64, from the bits of
+    the activation planes ``a`` (a_bits * R, K) float64 (``plane_bits``,
+    plane x's rows at x * R) and the words of the weight planes
+    ``w_planes`` (w_bits, C, ...) in the same order: one pair's AND and
+    popcount summed over the words is the dot product of the two planes'
+    bits, a float64 product of 0/1 matrices, exact while K < 2^53.
+    -> (R, C)."""
+    shift = torch.arange(a_bits, device=a.device).reshape(a_bits, 1, 1)
+    acc = 0
+    for y, w in enumerate(w_planes):
+        cnt = (a @ plane_bits(w).flatten(1).T).to(torch.int64)
+        acc = acc + (cnt.reshape(a_bits, -1, cnt.shape[-1])
+                     << (shift + y)).sum(0)
+    return acc
+
+
 def packed_matmul_plain(pa: torch.Tensor, pw: torch.Tensor) -> torch.Tensor:
     """Eq. 1 on packed planes: (a_bits, M, KW) x (w_bits, N, KW) -> (M, N)
-    int32, summed in int64 and wrapped mod 2^32."""
+    int32, each pair's popcounts counted by ``count_pairs``, summed in int64
+    and wrapped mod 2^32."""
     a_bits, m, kw = pa.shape
-    w_bits, n, _ = pw.shape
+    _, n, _ = pw.shape
+    k = kw * bitslice.LANE_BITS
     out = torch.empty((m, n), dtype=torch.int64, device=pa.device)
-    step = max(1, _PLAIN_CHUNK // max(1, n * kw))
-    for r0 in range(0, m, step):
-        a = pa[:, r0:r0 + step]
-        acc = torch.zeros((a.shape[1], n), dtype=torch.int64, device=pa.device)
-        for x in range(a_bits):
-            for y in range(w_bits):
-                cnt = bitslice.popcount(a[x][:, None, :] & pw[y][None]).sum(-1)
-                acc += cnt << (x + y)
-        out[r0:r0 + step] = acc
+    cols = max(1, min(n, _PLAIN_CHUNK // k))
+    rows = max(1, min(m, _PLAIN_CHUNK // (a_bits * max(k, cols))))
+    for r0 in range(0, m, rows):
+        a = plane_bits(pa[:, r0:r0 + rows])
+        a = a.reshape(-1, k)
+        for c0 in range(0, n, cols):
+            out[r0:r0 + rows, c0:c0 + cols] = count_pairs(
+                a, pw[:, c0:c0 + cols], a_bits)
     return bitslice.to_int32_bits(out & 0xFFFFFFFF)
 
 

@@ -27,7 +27,8 @@ import torch
 from repro_torch.core import bitslice
 
 from . import _build
-from .bitserial_matmul import _PLAIN_CHUNK, _sm_count
+from .bitserial_matmul import (_PLAIN_CHUNK, _sm_count, count_pairs,
+                               plane_bits)
 
 launches = 0
 
@@ -155,29 +156,26 @@ def _plan(n_oh: int, ow: int, cw: int, c: int, o: int, kh: int, kw: int,
 
 def conv2d_fused_plain(pa: torch.Tensor, pw: torch.Tensor, *, n: int, hp: int,
                        oh: int, ow: int, stride: int = 1) -> torch.Tensor:
-    """Plain PyTorch version: gather each (kh, kw) tap's input words, AND
-    them with the tap's weight planes and popcount, summed in int64 and
-    wrapped mod 2^32."""
+    """Plain PyTorch version: gather each kernel row's (kw) taps of input
+    words, AND them with the row's weight planes and popcount
+    (``count_pairs``), summed in int64 and wrapped mod 2^32."""
     a_bits, _, _, cw = pa.shape
-    kh_sz, w_bits, o, kw_sz, _ = pw.shape
+    kh_sz, _, o, kw_sz, _ = pw.shape
+    k = kw_sz * cw * bitslice.LANE_BITS
     r = torch.arange(n * oh, device=pa.device)
     base = (r // oh) * hp + (r % oh) * stride
     out = torch.empty((n * oh, ow, o), dtype=torch.int64, device=pa.device)
-    step = max(1, _PLAIN_CHUNK // max(1, ow * o * cw))
+    step = max(1, _PLAIN_CHUNK // (a_bits * ow * max(k, o)))
     for r0 in range(0, n * oh, step):
         rows = base[r0:r0 + step]
-        acc = torch.zeros((rows.numel(), ow, o), dtype=torch.int64,
-                          device=pa.device)
+        acc = 0
         for kh in range(kh_sz):
             a_rows = pa[:, rows + kh]                     # (a_bits, R, Wp, CW)
-            for kw in range(kw_sz):
-                a = a_rows[:, :, kw:kw + (ow - 1) * stride + 1:stride]
-                for x in range(a_bits):
-                    for y in range(w_bits):
-                        w = pw[kh, y, :, kw]              # (O, CW)
-                        cnt = bitslice.popcount(a[x][..., None, :] & w).sum(-1)
-                        acc += cnt << (x + y)
-        out[r0:r0 + step] = acc
+            taps = torch.stack([a_rows[:, :, kw:kw + (ow - 1) * stride + 1:
+                                       stride] for kw in range(kw_sz)], -2)
+            a = plane_bits(taps).reshape(-1, k)           # (a_bits*R*OW, K)
+            acc = acc + count_pairs(a, pw[kh], a_bits)    # (R*OW, O)
+        out[r0:r0 + step] = acc.reshape(-1, ow, o)
     return bitslice.to_int32_bits(out & 0xFFFFFFFF).reshape(n, oh, ow, o)
 
 

@@ -137,9 +137,18 @@ def conv2d_bitserial(qx: torch.Tensor, pw: torch.Tensor, *, a_bits: int,
     ``bo`` is the reference's O-block request (an autotuner decision's).
     Kernel 3 has one O block, ``conv2d_fused.BN`` = 64 channels, so every
     request legalizes to it and the launch plan does not move.
+
+    Under an active :func:`repro_torch.pim.faults.read_disturb_scope`
+    each call reads a freshly disturbed view of the fused planes, the
+    site's field drawn in im2col code space, so the fused and im2col
+    routes read the same state; outside a scope nothing extra runs.
     """
     n, hp, wp, c = qx.shape
-    kh, _, _, kw_sz, cw = pw.shape
+    kh, _, o, kw_sz, cw = pw.shape
+    from repro_torch.pim import faults   # lazy: pim imports core
+
+    if faults.read_disturb_active():
+        pw = faults.disturb_fused_planes(pw, (kh, kw_sz, c, o))
     oh = (hp - kh) // stride + 1
     ow = (wp - kw_sz) // stride + 1
     pa = pack_planes(qx.reshape(n * hp * wp, c), a_bits)

@@ -13,11 +13,16 @@ from repro_torch.core import (PIMQuantConfig, fold_batchnorm, pim_conv2d,
                               pim_linear, prepack_conv2d, prepack_linear)
 
 
-def prepack_params(params, cfg: PIMQuantConfig | None):
+def prepack_params(params, cfg: PIMQuantConfig | None, faults=None):
     """Quantize + pack every conv/fc weight in a CNN param tree exactly once.
 
     Replaces each ``"w"`` leaf with a :class:`PackedWeight` or
     :class:`PackedConvWeight`; biases and BN params pass through.
+
+    ``faults``: an optional :class:`repro_torch.pim.faults.FaultConfig`:
+    corrupt the freshly programmed planes with persistent device faults
+    (and, with ``faults.checksum``, repair flagged columns from spares)
+    before the tree ships, as a NAND-SPIN programming pass would.
     """
     if cfg is None or not cfg.enabled:
         return params
@@ -31,7 +36,12 @@ def prepack_params(params, cfg: PIMQuantConfig | None):
                     for k, v in p.items()}
         return p
 
-    return walk(params)
+    packed = walk(params)
+    if faults is not None:
+        from repro_torch.pim.faults import inject_tree
+
+        packed, _ = inject_tree(packed, faults)
+    return packed
 
 
 def tree_to(params, device):

@@ -37,6 +37,7 @@ import torch
 
 from repro_torch.core.packed import PackedWeight, prepack
 from repro_torch.core.pim_layers import pim_linear
+from repro_torch.pim import faults as _faults
 
 from . import attention as A
 from . import cache as C
@@ -251,7 +252,7 @@ _PIM_PROJ_KEYS = frozenset({
 _MOE_EXPERT_KEYS = frozenset({"w_in", "w_out", "w_gate"})
 
 
-def prepack_params(params, cfg):
+def prepack_params(params, cfg, faults=None):
     """Quantize + pack every pim_linear projection weight exactly once.
 
     ``cfg`` is the model's ``PIMQuantConfig`` (None or disabled: the tree
@@ -263,7 +264,14 @@ def prepack_params(params, cfg):
     and each becomes one bank PackedWeight (or a list of R), every expert
     calibrated on itself; the ``router`` stays float, so the packed path
     routes exactly as the float one.
-    Single device only: no mesh and no fault injection here.
+
+    ``faults``: an optional :class:`repro_torch.pim.faults.FaultConfig`.
+    After packing, persistent device faults (stochastic writes, retention,
+    stuck-at cells, dead subarrays) corrupt the packed codes, re-packed
+    through kernel 1, as a real subarray-programming pass would; with
+    ``faults.checksum`` armed, flagged columns repair from spares before
+    the tree ships. A rep list is one leaf of the injection, as the
+    reference's stacked leaf is. Single device only: no mesh.
     """
     if cfg is None or not getattr(cfg, "enabled", False):
         return params
@@ -293,7 +301,10 @@ def prepack_params(params, cfg):
             return type(p)(walk(v) for v in p)
         return p
 
-    return walk(params)
+    packed = walk(params)
+    if faults is not None:
+        packed, _ = _faults.inject_tree(packed, faults)
+    return packed
 
 
 # ---------------------------------------------------------------------------
@@ -323,7 +334,11 @@ def _run_blocks(params, cfg: ModelConfig, x, q_pos, states=None,
     layers (``_zero_aux``), or None for a model without MoE."""
     unit, reps, rest = layer_plan(cfg)
     aux = _zero_aux(x.device) if cfg.moe else None
+    # Under a read-disturb scope every rep reads at the scan body's sites,
+    # as the reference's one traced scan body numbers them.
+    mark = _faults.site_mark()
     for r in range(reps):
+        _faults.site_rewind(mark)
         for j, kind in enumerate(unit):
             s = _rep(states["scan"][j], r) if states is not None else None
             x, ns = apply_block(kind, _rep(params["scan"][j], r), cfg, x,

@@ -9,9 +9,12 @@ paper avoids duplication, so the default replication is 1).
 Energy: per-op pricing from :mod:`repro_torch.pim.device` plus static power
 integrated over the runtime.
 
-The JAX package's cost model also charges the fault mitigation of its
-``pim.faults`` (factors that are exactly 1 without it); the port has no
-fault model, so its prices are those of the unprotected model.
+Fault mitigation (:mod:`repro_torch.pim.faults`) is charged here too:
+replicated MSB planes multiply storage, sense work and programming; spare
+columns multiply storage and programming. Pass a ``FaultConfig`` to
+:class:`CostModel` and the per-phase prices scale by
+:func:`redundancy_factors`; None keeps every price bit-identical to the
+unprotected model.
 """
 from __future__ import annotations
 
@@ -21,6 +24,27 @@ import math
 from .device import NandSpinDevice, PeripheralCircuits
 from .hierarchy import Geometry
 from .mapper import OpCounts
+
+
+def redundancy_factors(faults, w_bits: int, cols: int) -> dict:
+    """Multiplicative overheads of the mitigation hierarchy.
+
+    ``storage`` — stored bit-planes + spare columns vs. bare: the top
+    ``protect_msb`` of ``w_bits`` planes each occupy ``vote_copies``
+    subarrays, and ``spare_cols`` standby columns ride every subarray row.
+    ``rowops``  — extra sense-path work: a protected plane is sensed once
+    per stored copy, then majority-voted in the periphery.
+    ``program`` — every redundant plane (and spare) programs its own cells.
+
+    The column-sum checksum is free in storage: ``col_sums`` already exists
+    as the affine correction's Sw register.
+    """
+    if faults is None:
+        return {"storage": 1.0, "rowops": 1.0, "program": 1.0}
+    p = min(faults.protect_msb, w_bits) / float(w_bits)
+    red = 1.0 + p * (faults.vote_copies - 1)
+    spares = faults.spare_cols / float(cols) if cols else 0.0
+    return {"storage": red + spares, "rowops": red, "program": red + spares}
 
 
 @dataclasses.dataclass
@@ -40,10 +64,13 @@ class CostModel:
         geometry: Geometry,
         device: NandSpinDevice | None = None,
         periph: PeripheralCircuits | None = None,
+        faults=None,                 # FaultConfig: charge its mitigation
+        w_bits: int = 8,
     ):
         self.g = geometry
         self.dev = device or NandSpinDevice()
         self.per = periph or PeripheralCircuits()
+        self.red = redundancy_factors(faults, w_bits, geometry.cols)
 
     # -- widths -------------------------------------------------------------
 
@@ -78,21 +105,24 @@ class CostModel:
     # -- phase pricing ---------------------------------------------------
 
     def price_rowops(self, oc: OpCounts) -> Cost:
-        """Sense-path work: AND + bit-count + reads."""
+        """Sense-path work: AND + bit-count + reads (x redundant copies)."""
         p = self.parallel_width(oc)
-        rowops = oc.and_rowops + oc.read_rowops
+        f = self.red["rowops"]
+        rowops = (oc.and_rowops + oc.read_rowops) * f
         lat = max(rowops / p, float(oc.seq_floor)) * self.dev.and_latency
-        e = (oc.and_rowops * self.e_and_rowop
-             + oc.read_rowops * self.e_read_rowop)
+        e = f * (oc.and_rowops * self.e_and_rowop
+                 + oc.read_rowops * self.e_read_rowop)
         return Cost(lat, e)
 
     def price_programs(self, oc: OpCounts) -> Cost:
-        """STT program bursts + SOT erases issued by this layer."""
+        """STT program bursts + SOT erases issued by this layer
+        (x redundant planes + spares)."""
         p = self.parallel_width(oc)
-        lat = (oc.program_steps * self.dev.program_latency_per_bit
-               + oc.erase_ops * self.dev.erase_latency_per_device) / p
-        e = (oc.program_steps * self.e_program_step
-             + oc.erase_ops * self.e_erase)
+        f = self.red["program"]
+        lat = f * (oc.program_steps * self.dev.program_latency_per_bit
+                   + oc.erase_ops * self.dev.erase_latency_per_device) / p
+        e = f * (oc.program_steps * self.e_program_step
+                 + oc.erase_ops * self.e_erase)
         return Cost(lat, e)
 
     def price_bus(self, oc: OpCounts) -> Cost:

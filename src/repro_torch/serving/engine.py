@@ -47,14 +47,33 @@ kernel-2 tiles) for this deployment's decode shape (m = ``max_batch``;
 MoE banks at every expert's capacity rows), recorded in the tuning cache.
 Decisions move dispatch only: tokens and logits are the untuned engine's.
 
-Later slices (``ROADMAP.md`` Queue 1): mesh serving, pipelined decode,
-the fault model and watchdog, snapshot/restore, redeploy and the gateway.
-The constructor raises ``NotImplementedError`` for each.
+Self-healing (``faults``, ``watchdog``; :mod:`repro_torch.pim.faults`):
+persistent faults corrupt the packed codes at prepack (re-packed through
+kernel 1); transient read disturb strikes every bit-serial product of a
+decode step, which runs under ``read_disturb_scope`` with the step's key
+(the reference's engine-key split, as a :class:`~repro_torch.pim.faults.
+Key`), and the step's logits health is ANDed on the device and read in
+the dispatch's one host copy. ``watchdog`` arms per-dispatch supervision:
+a shadow of the engine before each dispatch (state and control tensors
+cloned, since prefill and decode write them in place; the host
+bookkeeping; the sampling generator's state and the key chain, so a retry
+draws the same), rollback and bounded-backoff retry on an injected fault,
+a device runtime error, non-finite logits or a blown deadline, disk
+snapshots on a cadence, and, once the budget is spent, redeployment on
+the float path from the masters. ``snapshot``/``restore`` carry the state,
+the control block, the generator state and key chain, the slots, the
+queue and the tuning decisions through :mod:`repro_torch.training.
+checkpoint`.
+
+Later slices (``ROADMAP.md`` Queue 1): mesh serving, pipelined decode and
+the gateway. The constructor raises ``NotImplementedError`` for the first
+two.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 import warnings
 
 import numpy as np
@@ -65,6 +84,11 @@ from repro_torch.models.lm.config import ModelConfig
 from repro_torch.models.lm.model import (decode_step, init_state,
                                          prefill_into_slot, prepack_params,
                                          to_device)
+from repro_torch.pim import faults as _faults
+from repro_torch.training import checkpoint as ckpt
+from repro_torch.training.fault_tolerance import (RestartPolicy,
+                                                  StragglerDetector,
+                                                  WatchdogConfig)
 
 from .gateway import Ring
 from .sampler import SamplerConfig, sample_per_slot
@@ -77,12 +101,22 @@ class Request:
     prompt: np.ndarray              # (L,) int32
     max_new_tokens: int = 32
     eos_id: int = -1                # -1: never
+    deadline_ms: float | None = None   # latency budget, for the gateway
 
 
 @dataclasses.dataclass
 class Completion:
     rid: int
     tokens: list
+
+
+def _clone(tree):
+    """A copy of a tree of tensors (dicts and lists), every tensor cloned."""
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone(v) for v in tree)
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
 
 
 def _pow2_chunks(n: int) -> list[int]:
@@ -109,10 +143,7 @@ class ServeEngine:
             raise ValueError(
                 f"autotune {autotune!r}: want 'off' | 'cost' | 'measure'")
         refuse_unported("ServeEngine", dict(
-            mesh=mesh is not None, faults=faults is not None,
-            watchdog=watchdog is not None,
-            fault_injector=fault_injector is not None,
-            keep_masters=keep_masters,
+            mesh=mesh is not None,
             pipeline_stages=pipeline_stages != 1,
             pipeline_microbatches=pipeline_microbatches is not None))
         if not cfg.embed_inputs or cfg.cross_attn_every:
@@ -127,15 +158,32 @@ class ServeEngine:
         self.max_len = max_len
         self.sampler = sampler or SamplerConfig()
         self.drain_steps = max(1, drain_steps)
+        self.faults = faults
+        self.watchdog = watchdog
+        self.fault_injector = fault_injector   # test hook: raises per dispatch
+        # Deployment-time quantize + pack, exactly once; persistent faults
+        # strike this programming pass (and, with faults.checksum, repair
+        # from spares) before the tree serves.
         with torch.no_grad():
-            self.params = prepack_params(to_device(params, self.device),
-                                         cfg.pim)
+            masters = to_device(params, self.device)
+            self.params = prepack_params(masters, cfg.pim, faults=faults)
+        # The float masters stay on the device under supervision (the
+        # degrade-to-float fallback redeploys from them) or on request
+        # (``keep_masters``, for :meth:`redeploy`).
+        self._raw_params = masters if (watchdog is not None
+                                       or keep_masters) else None
+        del masters
         self.autotune = autotune
         self._tuning_cache_arg = tuning_cache
         self.tune_cache = None
         self._maybe_autotune()
         self.state = init_state(cfg, max_batch, max_len, self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # The reference's engine key, PRNGKey(seed) split once an admission
+        # and once a decode step (twice under transient faults): kept as
+        # (root seed, chain length) on the host, read only by the
+        # read-disturb draws of a decode step.
+        self._key_seed, self._key_chain = seed, 0
 
         def zeros(dtype):
             return torch.zeros((max_batch,), dtype=dtype, device=self.device)
@@ -152,8 +200,11 @@ class ServeEngine:
         self.queue: collections.deque = collections.deque()
         self.done: list = []
         self._cancelled: set = set()   # rids to release at the next boundary
-        # The JAX engine's health counters: dispatches are counted; the
-        # watchdog that moves the others comes in a later slice.
+        # Supervision state (inert unless watchdog/fault_injector set).
+        wd = watchdog or WatchdogConfig()
+        self._policy = RestartPolicy(wd.max_failures, wd.backoff_s)
+        self._detector = StragglerDetector(wd.straggler_z)
+        self._last_ok = True
         self.health = {"dispatches": 0, "rollbacks": 0, "stragglers": 0,
                        "snapshots": 0, "degraded": False}
         # Routing telemetry (MoE only): each decode step's fraction of
@@ -196,19 +247,42 @@ class ServeEngine:
         c["eos"][s] = eos_id
         c["remaining"][s] = n_new - 1
         c["live"][s] = (tok != eos_id) & (n_new > 1)
+        self._key_chain += 1
         return tok
+
+    @property
+    def _transient(self) -> bool:
+        return self.faults is not None and self.faults.transient
 
     def _decode_n(self, n: int):
         """``n`` fused decode + sample steps. Returns the (n, B) tokens and
         done flags, read to the host in one copy; an MoE engine's per-step
         drop fractions stay on the device until one more copy after the
-        loop, and go into its ring."""
+        loop, and go into its ring. Under transient faults each step
+        decodes under ``read_disturb_scope`` with its own key, and the
+        steps' logits health (all finite) is ANDed on the device and read
+        in the same copy (``_last_ok``)."""
         c = self.ctrl
         out, drops = [], []
+        ok = torch.ones((), dtype=torch.bool, device=self.device) \
+            if self._transient else None
         for _ in range(n):
             length = self.state["length"].clone()
-            res = decode_step(self.params, self.cfg, c["last_tok"][:, None],
-                              self.state, return_stats=bool(self.rings))
+            if self._transient:
+                # key0, dkey = split(key): the step's disturb key.
+                dkey = _faults.Key.root(self._key_seed).chain(
+                    self._key_chain).split(2, 1)
+                self._key_chain += 1
+                with _faults.read_disturb_scope(self.faults, dkey):
+                    res = decode_step(self.params, self.cfg,
+                                      c["last_tok"][:, None], self.state,
+                                      return_stats=bool(self.rings))
+                ok &= torch.isfinite(res[0]).all()
+            else:
+                res = decode_step(self.params, self.cfg,
+                                  c["last_tok"][:, None], self.state,
+                                  return_stats=bool(self.rings))
+            self._key_chain += 1
             logits, self.state = res[:2]
             if self.rings:
                 drops.append(res[2]["moe_drop_frac"])
@@ -222,7 +296,13 @@ class ServeEngine:
             c["live"] &= ~done
             c["last_tok"] = nxt
             out.append(torch.stack([nxt, done.to(torch.int32)]))
-        out = torch.stack(out).cpu().numpy()          # (n, 2, B)
+        out = torch.stack(out)                        # (n, 2, B)
+        if ok is None:
+            out = out.cpu().numpy()
+        else:
+            flat = torch.cat([out.flatten(), ok.to(torch.int32)[None]])
+            flat = flat.cpu().numpy()
+            out, self._last_ok = flat[:-1].reshape(out.shape), bool(flat[-1])
         if drops:
             for v in torch.stack(drops).cpu().numpy():
                 self.rings["moe_drop_frac"].push(float(v))
@@ -317,9 +397,21 @@ class ServeEngine:
     @torch.no_grad()
     def step(self) -> list:
         """Admit + decode (one step, or a drain of up to ``drain_steps``
-        fused steps when no admissions are pending); returns completions."""
+        fused steps when no admissions are pending); returns completions.
+
+        With a watchdog (or fault injector) armed, the dispatch runs
+        supervised (:meth:`_step_supervised`)."""
         if self._cancelled:
+            # Before the shadow: a rollback must not resurrect a cancelled
+            # request.
             self._release_cancelled()
+        if self.watchdog is None and self.fault_injector is None:
+            return self._step_once(count=True)
+        return self._step_supervised()
+
+    def _step_once(self, count: bool = False) -> list:
+        """One unsupervised dispatch. ``count``: count a decode dispatch in
+        ``health`` (the supervised path counts each successful step)."""
         self._admit()
         live = [i for i, r in enumerate(self.slot_req) if r is not None]
         if not live:
@@ -331,7 +423,8 @@ class ServeEngine:
                              int(max(self.slot_remaining[i] for i in live))))
             n = 1 << (cap.bit_length() - 1)
         toks, dones = self._decode_n(n)
-        self.health["dispatches"] += 1
+        if count:
+            self.health["dispatches"] += 1
         for k in range(n):
             for i in list(live):
                 req = self.slot_req[i]
@@ -361,17 +454,190 @@ class ServeEngine:
                              mean=float(v.mean()) if len(ring) else None)
         return out
 
+    # -- watchdog supervision -------------------------------------------------
+
+    def _shadow(self):
+        """In-memory rollback point: the state and control tensors cloned
+        (prefill and decode write them in place), the host bookkeeping,
+        the sampling generator's state and the key chain."""
+        dev = _clone({"state": self.state, "ctrl": self.ctrl})
+        return (dev, list(self.slot_req), [list(o) for o in self.slot_out],
+                self.slot_remaining.copy(), collections.deque(self.queue),
+                list(self.done), self.generator.get_state(),
+                (self._key_seed, self._key_chain))
+
+    def _restore_shadow(self, shadow):
+        dev, reqs, outs, rem, queue, done, gen, key = shadow
+        self.state, self.ctrl = dev["state"], dev["ctrl"]
+        self.slot_req, self.slot_out = reqs, outs
+        self.slot_remaining, self.queue, self.done = rem, queue, done
+        self.generator.set_state(gen)
+        self._key_seed, self._key_chain = key
+
+    def _step_supervised(self) -> list:
+        """Shadow -> dispatch -> health checks, rollback + retry on failure.
+
+        Failure channels: the ``fault_injector`` hook raising, a device
+        runtime error (each a ``RuntimeError``), the non-finite-logit flag
+        (transient faults) and a dispatch past ``deadline_s``. Each failure
+        restores the shadow (completions drained by the failed dispatch
+        are part of it, so no token is emitted twice) and retries after
+        ``RestartPolicy`` backoff; a spent budget degrades to the float
+        path (``degrade=True``) or re-raises. ``health["dispatches"]``
+        counts each successful dispatch once.
+        """
+        wd = self.watchdog
+        while True:
+            shadow = self._shadow()
+            t0 = time.monotonic()
+            try:
+                if self.fault_injector is not None:
+                    self.fault_injector(self.health["dispatches"])
+                out = self._step_once()
+                dt = time.monotonic() - t0
+                if self._detector.observe(dt):
+                    self.health["stragglers"] += 1
+                if wd is not None and wd.deadline_s is not None \
+                        and dt > wd.deadline_s:
+                    raise RuntimeError(
+                        f"watchdog: dispatch took {dt:.3f}s "
+                        f"> deadline {wd.deadline_s}s")
+                if not self._last_ok:
+                    raise RuntimeError(
+                        "watchdog: non-finite logits in dispatch")
+            except RuntimeError as e:
+                self._restore_shadow(shadow)
+                self._last_ok = True
+                self.health["rollbacks"] += 1
+                try:
+                    wait = self._policy.on_failure()
+                except RuntimeError:
+                    if wd is not None and wd.degrade \
+                            and self._raw_params is not None \
+                            and getattr(self.cfg.pim, "enabled", False):
+                        print(f"[serve-watchdog] budget spent ({e!r}); "
+                              "degrading to float path", flush=True)
+                        self._degrade_to_float()
+                        continue
+                    raise
+                print(f"[serve-watchdog] dispatch failed: {e!r}; "
+                      f"rollback + retry in {wait:.2f}s", flush=True)
+                time.sleep(min(wait, 0.05))  # bounded for tests; real: full
+                continue
+            self.health["dispatches"] += 1
+            self._policy.record_progress(self.health["dispatches"])
+            if wd is not None and wd.snap_every and wd.ckpt_dir \
+                    and self.health["dispatches"] % wd.snap_every == 0:
+                self.snapshot(wd.ckpt_dir, step=self.health["dispatches"])
+                self.health["snapshots"] += 1
+            return out
+
+    def redeploy(self, pim_cfg):
+        """Re-prepack from the float masters under a new PIM config (and
+        re-tune): the degrade machinery, parameterized so a serving cohort
+        can move to another precision (or back). The decode state and the
+        control block carry over, so in-flight generations continue on
+        the new path. Needs the masters (``keep_masters=True`` or a
+        watchdog)."""
+        if self._raw_params is None:
+            raise RuntimeError(
+                "redeploy needs the float masters; construct the engine "
+                "with keep_masters=True (or a watchdog)")
+        self.cfg = dataclasses.replace(self.cfg, pim=pim_cfg)
+        with torch.no_grad():
+            self.params = prepack_params(self._raw_params, pim_cfg,
+                                         faults=self.faults)
+        self._maybe_autotune()   # new precision -> fresh (cached) decisions
+
+    def _degrade_to_float(self):
+        """Sustained fault pressure: redeploy on the float path from the
+        golden masters and keep serving."""
+        self.faults = None
+        self._last_ok = True
+        self.redeploy(dataclasses.replace(self.cfg.pim, enabled=False))
+        wd = self.watchdog
+        self._policy = RestartPolicy(wd.max_failures, wd.backoff_s)
+        self.health["degraded"] = True
+
+    # -- snapshot / restore ----------------------------------------------------
+
+    @staticmethod
+    def _req_dict(r: Request) -> dict:
+        return {"rid": r.rid, "prompt": np.asarray(r.prompt).tolist(),
+                "max_new_tokens": r.max_new_tokens, "eos_id": r.eos_id,
+                "deadline_ms": r.deadline_ms}
+
+    @staticmethod
+    def _req_from(s: dict) -> Request:
+        return Request(rid=s["rid"], prompt=np.asarray(s["prompt"], np.int32),
+                       max_new_tokens=s["max_new_tokens"], eos_id=s["eos_id"],
+                       deadline_ms=s.get("deadline_ms"))
+
+    def _device_tree(self) -> dict:
+        """What a snapshot saves: the state, and the control block with
+        the key (root seed, chain length) and the sampling generator's
+        state."""
+        key = torch.tensor([self._key_seed, self._key_chain],
+                           dtype=torch.int64)
+        return {"state": self.state,
+                "ctrl": dict(self.ctrl, key=key,
+                             generator=self.generator.get_state())}
+
+    def snapshot(self, ckpt_dir: str, step: int = 0):
+        """Checkpoint the state, the control block (with the key and the
+        generator state), the slot bookkeeping and the queued requests
+        (re-enqueued by :meth:`restore`). Safe mid-generation: saving
+        copies to the host."""
+        slots = []
+        for i, r in enumerate(self.slot_req):
+            slots.append(None if r is None else dict(
+                self._req_dict(r), out=list(self.slot_out[i]),
+                remaining=self.slot_remaining[i]))
+        extra = {"slots": slots,
+                 "queue": [self._req_dict(r) for r in self.queue],
+                 "max_batch": self.max_batch,
+                 "max_len": self.max_len}
+        if self.tune_cache is not None:
+            extra["tuning"] = self.tune_cache.to_extra()
+        ckpt.save(ckpt_dir, step, self._device_tree(), extra=extra)
+
+    def restore(self, ckpt_dir: str, step: int | None = None):
+        """Resume mid-generation from :meth:`snapshot` (same cfg and
+        grid). The saved key and generator state replace this engine's,
+        so a restored engine draws what the saved one would have."""
+        tree, manifest = ckpt.restore(ckpt_dir, self._device_tree(),
+                                      step=step)
+        ctrl = tree["ctrl"]
+        self._key_seed, self._key_chain = (int(v) for v in ctrl.pop("key"))
+        self.generator.set_state(ctrl.pop("generator"))
+        self.state, self.ctrl = tree["state"], ctrl
+        for i, s in enumerate(manifest["extra"]["slots"]):
+            if s is None:
+                self.slot_req[i] = None
+                self.slot_out[i] = []
+                self.slot_remaining[i] = 0
+            else:
+                self.slot_req[i] = self._req_from(s)
+                self.slot_out[i] = list(s["out"])
+                self.slot_remaining[i] = s["remaining"]
+        self.queue = collections.deque(
+            self._req_from(s) for s in manifest["extra"].get("queue", []))
+        if self.tune_cache is not None:
+            self.tune_cache.merge_extra(manifest["extra"].get("tuning"))
+        return manifest
+
     def close(self):
         """Engine teardown: drop the device tensors the engine holds (the
-        prepacked weights, the decode grid, the control block and the
-        generator), so their memory returns to the allocator, and refuse
-        further work. ``stats()`` still answers. The tuning cache is reset,
-        so a later engine sharing the cache object re-reads its (possibly
-        repaired) backing file instead of serving this engine's stale
-        fallback memo."""
+        prepacked weights, the masters, the decode grid, the control block
+        and the generator), so their memory returns to the allocator, and
+        refuse further work. ``stats()`` still answers. The tuning cache is
+        reset, so a later engine sharing the cache object re-reads its
+        (possibly repaired) backing file instead of serving this engine's
+        stale fallback memo."""
         if self.tune_cache is not None:
             self.tune_cache.reset()
         self.params = self.state = self.ctrl = self.generator = None
+        self._raw_params = None
         self.queue.clear()
         self.slot_req = [None] * self.max_batch
         self._closed = True

@@ -22,6 +22,14 @@ Numerics: a bucket's logits equal ``model.apply`` on the same stacked batch
 with the same ``PIMQuantConfig`` — activation calibration is per batch in
 both, so results depend on bucket composition, as in the JAX package.
 
+Self-healing (``faults``, ``watchdog``; :mod:`repro_torch.pim.faults`):
+persistent faults strike each (model, precision) programming pass (the
+golden tree is kept for repair); transient read disturb strikes every
+quantized dispatch through a per-dispatch key. The watchdog retries a
+failed bucket (repairing checksum-flagged columns from the golden tree
+first) and degrades a cohort to the float path once its budget is spent;
+``degrade_cohort`` / ``restore_cohort`` move a cohort by hand.
+
 The engine runs on ``device`` ("cuda" unless the caller asks otherwise):
 on a CUDA device every bit-serial product of the "cuda" and "popcount"
 backends goes through the hand-written kernels; ``device="cpu"`` runs their
@@ -32,6 +40,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import re
+import time
 import warnings
 
 import numpy as np
@@ -41,6 +50,8 @@ from repro_torch import disable_tf32
 from repro_torch.core import PIMQuantConfig
 from repro_torch.models.cnn import MODELS
 from repro_torch.models.cnn import layers as L
+from repro_torch.pim import faults as _faults
+from repro_torch.training.fault_tolerance import RestartPolicy, WatchdogConfig
 
 # The port's CNN zoo, keyed by serving name.
 MODEL_ZOO = MODELS
@@ -79,10 +90,6 @@ class VisionCompletion:
 # slice (ROADMAP.md Queue 1) that brings each.
 _LATER = {
     "mesh": "mesh serving",
-    "faults": "faults and the watchdog",
-    "watchdog": "faults and the watchdog",
-    "fault_injector": "faults and the watchdog",
-    "keep_masters": "redeploy and the gateway",
     "pipeline_stages": "pipelined decode with mesh serving",
     "pipeline_microbatches": "pipelined decode with mesh serving",
 }
@@ -127,10 +134,12 @@ class VisionEngine:
     reference; "measure" times the FC candidates on the device);
     ``tuning_cache`` is a path, a ``TuningCache`` or None (in memory).
 
-    The reference's other keywords are taken at their defaults; ``seed`` is
-    kept (nothing in this slice draws from it), and a non-default ``mesh``,
-    ``faults``, ``watchdog`` or ``fault_injector`` raises
-    ``NotImplementedError`` naming the slice that brings it.
+    ``faults`` (a :class:`repro_torch.pim.faults.FaultConfig`),
+    ``watchdog`` (a :class:`repro_torch.training.fault_tolerance.
+    WatchdogConfig`) and ``fault_injector`` (a test hook called with the
+    dispatch count, which may raise) arm the self-healing path; ``seed``
+    roots the per-dispatch read-disturb keys. A non-default ``mesh``
+    raises ``NotImplementedError`` naming the slice that brings it.
     """
 
     def __init__(self, models: dict, backend: str = "cuda",
@@ -140,10 +149,7 @@ class VisionEngine:
         if autotune not in ("off", "cost", "measure"):
             raise ValueError(
                 f"autotune {autotune!r}: want 'off' | 'cost' | 'measure'")
-        refuse_unported("VisionEngine", dict(
-            mesh=mesh is not None, faults=faults is not None,
-            watchdog=watchdog is not None,
-            fault_injector=fault_injector is not None))
+        refuse_unported("VisionEngine", dict(mesh=mesh is not None))
         PIMQuantConfig(backend=backend)     # rejects an unknown backend
         self.device = resolve_device(device)
         disable_tf32()
@@ -168,7 +174,22 @@ class VisionEngine:
         self.queue: collections.deque = collections.deque()
         self._masters: dict = {}    # model -> float tree on the device
         self._packed: dict = {}     # (model, precision) -> param tree
+        self._golden: dict = {}     # (model, precision) -> fault-free tree
         self.prepacks = 0           # (model, precision) trees built
+        # Self-healing: the watchdog retries failed buckets (repairing
+        # flagged columns from the golden tree when the checksum is armed)
+        # and degrades a cohort to the float path once its budget is spent.
+        self.faults = faults
+        self.watchdog = watchdog
+        self.fault_injector = fault_injector   # test hook: raises per dispatch
+        self._wd = wd = watchdog or WatchdogConfig()
+        self._policy = RestartPolicy(wd.max_failures, wd.backoff_s)
+        self._degraded: set = set()            # (model, precision) cohorts
+        # The reference's fault key, PRNGKey(seed) split once a quantized
+        # dispatch under transient faults: kept as its chain length.
+        self._fault_chain = 0
+        self.health = {"dispatches": 0, "rollbacks": 0, "repairs": 0,
+                       "repaired_cols": 0, "degraded": []}
 
     def _cfg(self, precision: str | None) -> PIMQuantConfig | None:
         bits = parse_precision(precision)
@@ -178,7 +199,12 @@ class VisionEngine:
                               backend=self.backend)
 
     def _packed_params(self, model: str, precision: str | None):
-        """Move to the device and quantize+pack exactly once per pair."""
+        """Move to the device and quantize+pack exactly once per pair.
+
+        With persistent faults the freshly programmed tree is corrupted
+        (each (model, precision) pair with its own key fold,
+        ``fold_in(faults.key(), len(golden))``), and the fault-free tree is
+        kept as the golden master the checksum repair re-programs from."""
         mkey = (model, precision)
         tree = self._packed.get(mkey)
         if tree is None:
@@ -189,9 +215,33 @@ class VisionEngine:
             cfg = self._cfg(precision)
             tree = L.prepack_params(masters, cfg) if cfg is not None \
                 else masters
+            if cfg is not None and self.faults is not None \
+                    and self.faults.persistent:
+                self._golden[mkey] = tree
+                key = self.faults.key().fold_in(len(self._golden))
+                tree, _ = _faults.inject_tree(tree, self.faults, key)
             self._packed[mkey] = tree
             self.prepacks += 1
         return tree
+
+    def _repair(self, model: str, precision: str | None) -> int:
+        """Checksum-scan the cohort's packed tree and re-program flagged
+        columns from the golden master (bounded by the spare budget).
+        Returns the number of repaired columns."""
+        mkey = (model, precision)
+        golden = self._golden.get(mkey)
+        if golden is None or self.faults is None or not self.faults.checksum:
+            return 0
+        tree, report = _faults.repair_tree(self._packed[mkey], golden,
+                                           self.faults.spare_cols,
+                                           self.faults.subarray_cols)
+        self._packed[mkey] = tree
+        # Tuned views hold the pre-repair tensors; drop them so the next
+        # dispatch re-derives from the repaired tree (the decisions come
+        # back from the tuning cache).
+        self._tuned = {k: v for k, v in self._tuned.items()
+                       if k[:2] != mkey}
+        return report["repaired_cols"]
 
     def _tuned_params(self, model: str, precision: str, shape):
         """Tuned view of the packed tree for one (cohort, image, bucket).
@@ -254,6 +304,30 @@ class VisionEngine:
         step, so at most one bucket's worth waits in the queue."""
         return max(0, self.max_batch - len(self.queue))
 
+    def degrade_cohort(self, model: str, precision: str | None) -> bool:
+        """Move a (model, precision) cohort to the float path (the
+        watchdog's budget-spent action, exposed as a lever). Returns True
+        if newly degraded."""
+        mkey = (model, precision)
+        if precision is None or mkey in self._degraded:
+            return False
+        self._degraded.add(mkey)
+        self.health["degraded"].append(mkey)
+        return True
+
+    def restore_cohort(self, model: str, precision: str | None) -> bool:
+        """Reverse :meth:`degrade_cohort` (the health log keeps the
+        history). Returns True if the cohort was degraded."""
+        mkey = (model, precision)
+        if mkey not in self._degraded:
+            return False
+        self._degraded.discard(mkey)
+        return True
+
+    @property
+    def _transient(self) -> bool:
+        return self.faults is not None and self.faults.transient
+
     def _group_key(self, req: VisionRequest):
         return (req.model, req.precision, np.asarray(req.image).shape)
 
@@ -281,7 +355,12 @@ class VisionEngine:
                 kept.append(r)
         self.queue = collections.deque(kept)
         model, precision, _ = key
-        return self._dispatch(group, model, precision)
+        if (model, precision) in self._degraded:
+            # Degraded cohort: the float path (completions keep their rids).
+            precision = None
+        if self.watchdog is None and self.fault_injector is None:
+            return self._dispatch(group, model, precision)
+        return self._dispatch_supervised(group, model, precision)
 
     def _dispatch(self, group, model: str, precision: str | None) -> list:
         bucket = len(group)
@@ -293,13 +372,74 @@ class VisionEngine:
             params = self._tuned_params(model, precision, batch.shape)
         module, _ = self._models[model]
         with torch.inference_mode():
-            logits = module.apply(params, batch, cfg=self._cfg(precision))
+            if precision is not None and self._transient:
+                # fault_key, dkey = split(fault_key): every bit-serial
+                # weight read of the bucket draws from dkey's sites.
+                dkey = _faults.Key.root(self.seed).chain(
+                    self._fault_chain).split(2, 1)
+                self._fault_chain += 1
+                with _faults.read_disturb_scope(self.faults, dkey):
+                    logits = module.apply(params, batch,
+                                          cfg=self._cfg(precision))
+            else:
+                logits = module.apply(params, batch, cfg=self._cfg(precision))
         logits = logits.cpu().numpy()
         return [
             VisionCompletion(rid=r.rid, logits=logits[i],
                              top1=int(logits[i].argmax()), batch=bucket)
             for i, r in enumerate(group)
         ]
+
+    def _dispatch_supervised(self, group, model: str,
+                             precision: str | None) -> list:
+        """Supervised bucket dispatch: retry under backoff on an injected
+        fault, a device runtime error, non-finite logits or a blown
+        deadline, repairing checksum-flagged columns before each retry;
+        once the failure budget is spent, degrade the cohort to the float
+        path and serve the bucket there. The group is held here (already
+        split off the queue), so a retry is a pure re-dispatch."""
+        wd = self._wd
+        while True:
+            try:
+                t0 = time.monotonic()
+                if self.fault_injector is not None:
+                    self.fault_injector(self.health["dispatches"])
+                out = self._dispatch(group, model, precision)
+                dt = time.monotonic() - t0
+                if wd.deadline_s is not None and dt > wd.deadline_s:
+                    raise RuntimeError(
+                        "vision dispatch exceeded deadline "
+                        f"({dt:.3f}s > {wd.deadline_s:.3f}s)")
+                if any(not np.isfinite(c.logits).all() for c in out):
+                    raise RuntimeError("non-finite logits in vision dispatch")
+                self.health["dispatches"] += 1
+                self._policy.record_progress(self.health["dispatches"])
+                return out
+            except RuntimeError as e:
+                self.health["rollbacks"] += 1
+                try:
+                    wait = self._policy.on_failure()
+                except RuntimeError:
+                    # Budget spent. The float path failing, or degrade
+                    # off: surface the error.
+                    if precision is None or not wd.degrade:
+                        raise
+                    mkey = (model, precision)
+                    self._degraded.add(mkey)
+                    self.health["degraded"].append(mkey)
+                    self._policy = RestartPolicy(wd.max_failures, wd.backoff_s)
+                    print(f"[vision-watchdog] cohort {mkey} degraded to the "
+                          f"float path after {wd.max_failures} failures",
+                          flush=True)
+                    return self._dispatch(group, model, None)
+                fixed = self._repair(model, precision)
+                if fixed:
+                    self.health["repairs"] += 1
+                    self.health["repaired_cols"] += fixed
+                print(f"[vision-watchdog] dispatch failed ({e!r}); "
+                      f"repaired {fixed} col(s), retrying in {wait:.3f}s",
+                      flush=True)
+                time.sleep(min(wait, 0.05))  # bounded for tests
 
     def run(self, max_steps: int = 10_000, strict: bool = False) -> list:
         """Drain the queue; returns all completions.

@@ -1,6 +1,8 @@
 """Helpers shared by the tests of the PyTorch port (tests/test_torch_*.py):
 the same numpy inputs go to the JAX package and to the port. JAX is
 imported inside the helpers that need it."""
+import functools
+
 import numpy as np
 import torch
 
@@ -261,3 +263,55 @@ def stub_params(jcfg, seed=0, gate=0.7):
             g = gate + 0.1 * np.arange(a["gate"].size, dtype=np.float32)
             a["gate"] = g.reshape(a["gate"].shape).astype(np.float32)
     return jp, convert.params_from_jax(jp)
+
+
+def jax_key(key):
+    """The JAX package's key for a port ``repro_torch.pim.faults.Key``:
+    its path replayed with ``PRNGKey``, ``fold_in``, ``split`` and the
+    engines' ``split(key)[0]`` chain."""
+    return _jax_key_path(key.path)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_key_path(path):
+    """Memoized by path, so draws that share a prefix (a leaf, a plane, a
+    copy) derive it once."""
+    import jax
+
+    if len(path) == 1:
+        tag, seed = path[0]
+        assert tag == "seed", path
+        return jax.random.PRNGKey(seed)
+    k, s = _jax_key_path(path[:-1]), path[-1]
+    if isinstance(s, int):
+        return jax.random.fold_in(k, s)
+    if s[0] == "split":
+        return jax.random.split(k, s[1])[s[2]]
+    for _ in range(s[1]):
+        k = jax.random.split(k)[0]
+    return k
+
+
+class JaxDrawer:
+    """A fault drawer (``repro_torch.pim.faults.use_drawer``) that draws
+    ``jax.random.bernoulli`` on the JAX package's key for each draw's
+    path, so the port's corruption can be held bit for bit against the
+    reference. ``draws`` counts its draws."""
+
+    def __init__(self):
+        self.draws = 0
+
+    def bernoulli(self, key, rate, shape, device):
+        self.draws += 1
+        bits = np.asarray(_jax_bernoulli(tuple(shape))(
+            jax_key(key), np.float32(rate)))
+        return torch.from_numpy(bits.astype(np.uint8)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_bernoulli(shape):
+    """``jax.random.bernoulli`` at one shape, jitted once for every rate
+    (the rate as float32, the type the reference's draw compares in)."""
+    import jax
+
+    return jax.jit(lambda k, p: jax.random.bernoulli(k, p, shape))

@@ -235,9 +235,7 @@ def test_engine_reads_the_host_once_per_dispatch(weights, monkeypatch):
 
 def test_engine_refuses_later_slices_and_bad_requests(weights):
     _, tc = _cfgs()
-    for kw in (dict(mesh=object()), dict(faults=object()),
-               dict(watchdog=object()), dict(pipeline_stages=2),
-               dict(keep_masters=True)):
+    for kw in (dict(mesh=object()), dict(pipeline_stages=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             ServeEngine(tc, weights["tp"], device="cpu", **kw)
     eng = ServeEngine(tc, weights["tp"], max_batch=1, max_len=16,

@@ -254,14 +254,27 @@ def test_engine_takes_the_reference_constructor_at_its_defaults():
 
 
 @pytest.mark.parametrize("name,value,slice_", [
-    ("mesh", object(), "mesh serving"),
-    ("faults", object(), "faults and the watchdog"),
-    ("watchdog", object(), "faults and the watchdog"),
-    ("fault_injector", lambda *a: None, "faults and the watchdog")])
+    ("mesh", object(), "mesh serving")])
 def test_engine_names_the_slice_of_each_later_keyword(name, value, slice_):
     with pytest.raises(NotImplementedError,
                        match=f"{name}=.*{slice_} \\(ROADMAP.md Queue 1\\)"):
         VisionEngine({"resnet50": {}}, device="cpu", **{name: value})
+
+
+@pytest.mark.parametrize("name", ["faults", "watchdog", "fault_injector"])
+def test_engine_takes_the_fault_keywords(name):
+    """The fault model and the watchdog are ported: each keyword is taken,
+    kept on the engine, and arms nothing until a dispatch."""
+    from repro_torch.pim.faults import FaultConfig
+    from repro_torch.training.fault_tolerance import WatchdogConfig
+
+    value = {"faults": FaultConfig(write_ber=1e-3),
+             "watchdog": WatchdogConfig(max_failures=1),
+             "fault_injector": lambda d: None}[name]
+    eng = VisionEngine({"resnet50": {}}, device="cpu", **{name: value})
+    assert getattr(eng, name) is value
+    assert eng.health == {"dispatches": 0, "rollbacks": 0, "repairs": 0,
+                          "repaired_cols": 0, "degraded": []}
 
 
 def test_engine_takes_autotune_and_a_tuning_cache(tmp_path):
@@ -336,7 +349,9 @@ def test_port_sources_import_no_jax_or_repro():
                 "configs/llama3_2_3b.py", "kernels/rwkv_chunk.py",
                 "serving/sampler.py", "serving/engine.py",
                 "models/lm/moe.py", "serving/gateway.py",
-                "configs/phi3_5_moe_42b.py", "configs/grok_1_314b.py"):
+                "configs/phi3_5_moe_42b.py", "configs/grok_1_314b.py",
+                "pim/faults.py", "training/fault_tolerance.py",
+                "training/checkpoint.py"):
         assert src / rel in sources, rel
     banned = ("jax", "jaxlib", "repro")
     for path in _port_sources():
