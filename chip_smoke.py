@@ -6,6 +6,7 @@
                                           # timed rows only
     python3 chip_smoke.py --autotune      # build, then phase 9 only
     python3 chip_smoke.py --faults        # build, then phase 10 only
+    python3 chip_smoke.py --train         # build, then phase 11 only
 
 Run from the root of a checkout on a machine with an NVIDIA H100 and the
 CUDA toolkit (``nvcc`` with sm_90a). It imports nothing of JAX or of the
@@ -262,6 +263,29 @@ failed phase, without a GPU, or outside a checkout.
    the plain pack of the codes XOR the site's field, kernel 4's P to
    int-direct's on that state). ``--faults`` runs the build and this
    phase alone.
+
+11. Training (``examples/train_lm.py``'s settings): llama3.2-3b at its
+   published width (28 layers, d_model 3072, vocab 128,256,
+   tied head; random weights from seed 0) built by the launcher's
+   ``build`` (bf16 params, float32 AdamW masters, ``remat="block"``,
+   ``SyntheticLM`` seed 0, batch 16 x seq 256, lr 6e-4) and stepped
+   ``TRAIN_STEPS`` times in bf16, then again with <8:8> QAT (every
+   projection and the tied head fake-quantized with straight-through
+   gradients), also at 28 layers; one more step of each is profiled on
+   the card. Prints
+   each run's losses, grad norms, the median step ms after
+   ``TRAIN_WARM`` steps, tok/s (the launcher's formula), peak GB and the
+   profiled step's idle share; fails unless every loss is finite, the
+   last is below the first and no bit-serial kernel launched during the
+   steps (the reference's training path reaches no Pallas kernel). Then
+   ``train_gpu_vs_cpu``: one full-width layer in float32, batch 2 x seq
+   64, one train step on the card and on the CPU from the same params
+   (loss rtol 1e-4, every gradient leaf 1e-3 relative L2, grad norm
+   1e-3; with QAT every fake-quantized weight equal bit for bit and the
+   training loss within 1e-3); then the launcher's ``main`` with the argv
+   of ``python -m repro_torch.launch.train --arch llama3.2-3b --reduced
+   --steps 20`` on the card, whose loss must fall.
+   ``--train`` runs the build and this phase alone.
 
 Kernel 5 (the chunked WKV) is float32 arithmetic that sums in another
 order than its plain version, so it is held to the reference's tolerances
@@ -3524,12 +3548,246 @@ def fault_phase(torch, np, ops, kc, imgs):
     return vision, lmrows, kernels
 
 
+# Phase 11: training (examples/train_lm.py's settings) at llama3.2-3b's
+# published width and depth.
+TRAIN_ARCH = "llama3.2-3b"
+TRAIN_STEPS = 12            # a run; losses printed, the first two warm
+TRAIN_WARM = 2
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 16, 256, 6e-4
+TRAIN_VS_CPU_SHAPE = dict(batch=2, seq=64)     # one full-width layer
+
+
+def train_card(torch, np, ops, pim: bool) -> dict:
+    """Phase 11a: ``TRAIN_STEPS`` steps of llama3.2-3b (full width,
+    all 28 layers, bf16 params with float32 masters,
+    ``remat="block"``) built by the launcher's ``build`` and stepped by
+    its ``make_train_step``, in bf16 or (``pim``) with <8:8> QAT; one more
+    step profiled on the card.
+    Fails unless every loss is finite, the last is below the first and no
+    bit-serial kernel launched during the steps."""
+    from repro_torch.launch import train as tlaunch
+
+    label = "<8:8> qat" if pim else "bf16"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params, opt_state, step, source, put = tlaunch.build(
+        TRAIN_ARCH, False, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR, 1,
+        False, pim=pim, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    losses, norms, lrs, secs = [], [], [], []
+    ops.reset_launch_counts()
+    for i in range(TRAIN_STEPS):
+        batch = put(source.batch(i))
+        t = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        losses.append(float(m["loss"]))          # the step's host read
+        secs.append(time.perf_counter() - t)
+        norms.append(float(m["grad_norm"]))
+        lrs.append(float(m["lr"]))
+    launches = ops.launch_counts()
+    batch = put(source.batch(TRAIN_STEPS))
+    prof = profile_call(torch, lambda: step(params, opt_state, batch))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(p.numel() for p in tlaunch.leaves(params))
+    steady = secs[TRAIN_WARM:]
+    row = dict(
+        training=TRAIN_ARCH, path=label, layers=cfg.n_layers,
+        d_model=cfg.d_model, vocab=cfg.vocab, params=n_params,
+        dtype=cfg.dtype, masters="float32", remat=cfg.remat,
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS, lr=TRAIN_LR,
+        setup_s=setup_s, step_ms=float(np.median(steady)) * 1e3,
+        step_ms_each=[x * 1e3 for x in secs],
+        tok_per_s=TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ / sum(secs),
+        tok_per_s_steady=TRAIN_BATCH * TRAIN_SEQ / float(np.median(steady)),
+        peak_memory_gb=peak_gb, idle_share=prof["idle_share"],
+        profiled_step=dict(wall_ms=prof["wall_ms"],
+                           device_ms=prof["device_ms"],
+                           launches_on_device=prof["launches_on_device"],
+                           top=prof["top"]),
+        losses=losses, grad_norms=norms, lrs=lrs,
+        bitserial_launches=launches)
+    print(json.dumps(row), flush=True)
+    del params, opt_state, step, batch
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"training {label}: a loss is not finite")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"training {label}: the loss did not fall "
+                             f"({losses[0]} -> {losses[-1]})")
+    if any(launches.values()):
+        raise AssertionError(f"training {label} launched bit-serial "
+                             f"kernels: {launches}")
+    return row
+
+
+def _clone_to(torch, tree, device):
+    from repro_torch.models.lm import model as lm
+
+    return lm._map(lambda x: x.to(device, copy=True), tree)
+
+
+def train_gpu_vs_cpu(torch, np, ops) -> dict:
+    """Phase 11b: one ``make_train_step`` step of one full-width
+    llama3.2-3b layer in float32 (TF32 off), batch 2 x seq 64, on the card
+    and on the CPU from the same params: the loss within rtol 1e-4, every
+    gradient leaf within 1e-3 relative L2, the grad norm within 1e-3.
+    With <8:8> QAT: every fake-quantized weight (the layer's projections
+    and the tied head) equal bit for bit, the training loss (no step)
+    within 1e-3."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import PIMQuantConfig
+    from repro_torch.core.quantize import fake_quant
+    from repro_torch.models.lm import model as lm
+    from repro_torch.training import (DataConfig, OptimizerConfig,
+                                      SyntheticLM, init_opt_state,
+                                      make_train_step)
+    from repro_torch.training.optimizer import leaves
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH).model, n_layers=1,
+                              dtype="float32")
+    base = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                   device="cuda")
+    batch = SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_VS_CPU_SHAPE["seq"],
+        global_batch=TRAIN_VS_CPU_SHAPE["batch"])).batch(0)
+    # float32 params: no float32 masters (the reference's keep_master
+    # False), so the CPU holds one copy of the layer fewer.
+    ocfg = OptimizerConfig(lr=TRAIN_LR, warmup_steps=2,
+                           total_steps=TRAIN_STEPS, keep_master=False)
+
+    cpu_base = _clone_to(torch, base, "cpu")
+
+    def one_step(c, params):
+        kept = {}
+
+        def keep(grads):
+            kept["grads"] = grads
+            return grads
+
+        ops.reset_launch_counts()
+        _, _, m = make_train_step(c, ocfg, compress_grads=keep)(
+            params, init_opt_state(ocfg, params), batch)
+        if any(ops.launch_counts().values()):
+            raise AssertionError(f"a training step launched bit-serial "
+                                 f"kernels: {ops.launch_counts()}")
+        return float(m["loss"]), float(m["grad_norm"]), kept["grads"]
+
+    def qat_loss(params, device):
+        with torch.no_grad():
+            return float(lm.loss_fn(params, qcfg, {
+                k: torch.from_numpy(v).to(device) for k, v in batch.items()},
+                train=True))
+
+    def rel(a, b):   # on the card
+        a, b = a.to("cuda"), b.to("cuda")
+        return float((a - b).norm() / (b.norm() + 1e-30))
+
+    # QAT first: the float step below updates its params in place.
+    t = time.perf_counter()
+    parts = {}
+    qcfg = dataclasses.replace(cfg, pim=PIMQuantConfig(8, 8,
+                                                       backend="int-direct"))
+
+    def weights(tree):
+        return [("embed.T", tree["embed"].T)] + [
+            (f"scan/0/{blk}/{k}", leaf[0])
+            for blk in ("attn", "ffn")
+            for k, leaf in tree["scan"][0][blk].items() if leaf.dim() == 3]
+
+    pairs = list(zip(weights(base), weights(cpu_base)))
+    unequal = [name for (name, w), (_, wc) in pairs
+               if not torch.equal(fake_quant(w, 8),
+                                  fake_quant(wc, 8).to("cuda"))]
+    parts["fake_quant_s"] = time.perf_counter() - t
+    lqg, lqc = qat_loss(base, "cuda"), qat_loss(cpu_base, "cpu")
+    parts["qat_loss_s"] = time.perf_counter() - t - parts["fake_quant_s"]
+    t1 = time.perf_counter()
+    lg, ng, gg = one_step(cfg, base)
+    parts["step_gpu_s"] = time.perf_counter() - t1
+    lc, nc, gc = one_step(cfg, cpu_base)
+    parts["step_cpu_s"] = time.perf_counter() - t1 - parts["step_gpu_s"]
+    grad_rel = max(rel(a, b) for a, b in zip(leaves(gg), leaves(gc)))
+    del gg, gc, cpu_base
+    row = dict(train_gpu_vs_cpu=TRAIN_ARCH, layers=1, d_model=cfg.d_model,
+               vocab=cfg.vocab, dtype="float32", **TRAIN_VS_CPU_SHAPE,
+               loss_gpu=lg, loss_cpu=lc, loss_rel=abs(lg - lc) / abs(lc),
+               grad_max_rel_l2=grad_rel, grad_norm_gpu=ng, grad_norm_cpu=nc,
+               grad_norm_rel=abs(ng - nc) / abs(nc),
+               qat_weights_compared=len(pairs),
+               qat_weights_unequal=unequal, qat_loss_gpu=lqg,
+               qat_loss_cpu=lqc, qat_loss_rel=abs(lqg - lqc) / abs(lqc),
+               seconds=time.perf_counter() - t, parts=parts)
+    ok = (row["loss_rel"] <= 1e-4 and grad_rel <= 1e-3
+          and row["grad_norm_rel"] <= 1e-3 and not unequal
+          and row["qat_loss_rel"] <= 1e-3)
+    row["passed"] = ok
+    print(json.dumps(row), flush=True)
+    del base
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"train_gpu_vs_cpu failed: {row}")
+    return row
+
+
+def train_launcher_on_card(np) -> dict:
+    """Phase 11c: the launcher's entry point with the argv of ``python -m
+    repro_torch.launch.train --arch llama3.2-3b --reduced --steps 20``
+    (every step logged, a checkpoint directory of its own) on the card;
+    its loss must fall. It runs in this process (a process of its own
+    would spend ~8 s reaching the card)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train as tlaunch
+
+    ckpt = tempfile.mkdtemp(prefix="train_launcher_")
+    argv = ["--arch", TRAIN_ARCH, "--reduced", "--steps", "20",
+            "--log-every", "1", "--ckpt-dir", ckpt]
+    out = io.StringIO()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            history = tlaunch.main(argv)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    losses = [loss for _, loss in history]
+    tail = [line for line in out.getvalue().splitlines()
+            if line.startswith(("arch=", "done:", "loss:"))]
+    row = dict(train_launcher=" ".join(argv[:-2]), losses=losses, tail=tail,
+               seconds=time.perf_counter() - t)
+    print(json.dumps(row), flush=True)
+    if not (len(losses) == 20 and np.all(np.isfinite(losses))
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"the launcher's loss did not fall: {losses}")
+    return row
+
+
+def train_phase(torch, np, ops):
+    """Phase 11: training. Each part is a phase of its own."""
+    rows = []
+    for pim in (False, True):
+        with phase(f"train {TRAIN_ARCH} {'<8:8> qat' if pim else 'bf16'}"):
+            rows.append(train_card(torch, np, ops, pim))
+    with phase(f"train gpu vs cpu {TRAIN_ARCH}"):
+        rows.append(train_gpu_vs_cpu(torch, np, ops))
+    with phase("train launcher"):
+        rows.append(train_launcher_on_card(np))
+    return rows
+
+
 def main(argv) -> int:
     kernel_rows = "--kernel-rows" in argv
     autotune_only = "--autotune" in argv
     faults_only = "--faults" in argv
-    unknown = [a for a in argv
-               if a not in ("--kernel-rows", "--autotune", "--faults")]
+    train_only = "--train" in argv
+    unknown = [a for a in argv if a not in ("--kernel-rows", "--autotune",
+                                            "--faults", "--train")]
     if unknown:
         print(f"chip_smoke.py: unknown arguments {unknown}", file=sys.stderr)
         return 2
@@ -3576,6 +3834,9 @@ def main(argv) -> int:
         (12, 224, 224, 3)).astype(np.float32)
     if autotune_only:
         autotune_phase(torch, np, ops, imgs)
+        return 0
+    if train_only:
+        train_phase(torch, np, ops)
         return 0
 
     # -- 3. kernels against their plain versions -----------------------------
@@ -3682,7 +3943,7 @@ def main(argv) -> int:
         with phase(f"gpu vs cpu {model} {backend}"):
             gpu_vs_cpu(torch, np, module, model, backend, image)
 
-    # -- 7. serving rwkv6-3b ---------------------------------------------------
+    # -- 7. serving rwkv6-3b --------------------------------------------------
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3712,7 +3973,7 @@ def main(argv) -> int:
         check_served_matmuls(np, kc, "rwkv6-3b", calls)
     del calls
 
-    # -- 7b. serving llama3.2-3b (dense GQA, tied embeddings) ------------------
+    # -- 7b. serving llama3.2-3b (dense GQA, tied embeddings) -----------------
     arch = dataclasses.replace(get_config("llama3.2-3b").model,
                                n_layers=LLAMA_LAYERS)
     with phase("serve llama3.2-3b bf16"), no_plain_pack():
@@ -3737,7 +3998,7 @@ def main(argv) -> int:
         check_served_matmuls(np, kc, "llama3.2-3b", calls)
     del calls
 
-    # -- 7c. serving recurrentgemma-9b (RG-LRU + local attention) --------------
+    # -- 7c. serving recurrentgemma-9b (RG-LRU + local attention) -------------
     arch = dataclasses.replace(get_config("recurrentgemma-9b").model,
                                n_layers=RG_LAYERS)
     with phase("serve recurrentgemma-9b bf16"), no_plain_pack():
@@ -3762,7 +4023,7 @@ def main(argv) -> int:
         check_served_matmuls(np, kc, "recurrentgemma-9b", calls)
     del calls
 
-    # -- 7d. serving phi3.5-moe (16 experts, top-2) at 4 of its 32 layers ------
+    # -- 7d. serving phi3.5-moe (16 experts, top-2) at 4 of its 32 layers -----
     arch = dataclasses.replace(get_config(PHI).model, n_layers=PHI_LAYERS)
     with phase("serve phi3.5-moe bf16"), no_plain_pack():
         params = lm.init(arch, torch.Generator(device="cuda").manual_seed(0),
@@ -3819,7 +4080,7 @@ def main(argv) -> int:
             check_stub_matmuls(kc, name, calls)
         del calls
 
-    # -- 8. the LMs against the CPU's plain versions ---------------------------
+    # -- 8. the LMs against the CPU's plain versions --------------------------
     with phase("gpu vs cpu rwkv6-3b"):
         lm_gpu_vs_cpu(torch, np, ops, "rwkv6-3b")
         lm_pim_gpu_vs_cpu(torch, np, ops, "rwkv6-3b")
@@ -3856,11 +4117,14 @@ def main(argv) -> int:
                               cross_attn_every=1, n_image_tokens=64)
         del shared
 
-    # -- 9. the autotuner --------------------------------------------------------
+    # -- 9. the autotuner -----------------------------------------------------
     autotune_phase(torch, np, ops, imgs)
 
-    # -- 10. the fault model, the watchdog and snapshot / restore ---------------
+    # -- 10. the fault model, the watchdog and snapshot / restore -------------
     fault_phase(torch, np, ops, kc, imgs)
+
+    # -- 11. training ---------------------------------------------------------
+    train_phase(torch, np, ops)
 
     kernels = [
         summary(kc.rows, "bitplane_pack", launches["bitplane_pack"],

@@ -17,6 +17,10 @@ implicit-im2col kernel that never builds the (N*OH*OW, KH*KW*C) matrix.
 :func:`fuse_conv_heuristic` picks one (the fused kernel only for the
 ``"cuda"`` backend), or ``conv_mode`` forces it.
 
+``train=True`` is quantization-aware training: fake quantization with a
+straight-through estimator (:func:`.quantize.fake_quant`) and float
+products, as in the JAX package.
+
 Layouts are the JAX package's: NHWC activations, HWIO conv weights. Float
 convolutions and the border correction's mask conv must not run in TF32
 (see :func:`repro_torch.disable_tf32`).
@@ -30,7 +34,7 @@ import torch.nn.functional as F
 
 from .bitserial import BACKENDS, int_matmul_prepacked, quantized_matmul
 from .packed import PackedConvWeight, PackedWeight, prepack, prepack_conv
-from .quantize import affine_correction, calibrate_minmax, quantize
+from .quantize import affine_correction, calibrate_minmax, fake_quant, quantize
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,17 +65,28 @@ def prepack_conv2d(w: torch.Tensor, cfg: PIMQuantConfig) -> PackedConvWeight:
 
 
 def pim_linear(x: torch.Tensor, w, b: torch.Tensor | None = None,
-               cfg: PIMQuantConfig | None = None) -> torch.Tensor:
+               cfg: PIMQuantConfig | None = None,
+               train: bool = False) -> torch.Tensor:
     """y = x @ w (+ b) through the paper's bit-serial pipeline.
 
     ``x`` (..., K) float; ``w`` a (K, N) float weight or a
     :class:`PackedWeight`. Leading dimensions of ``x`` are flattened for the
     product (one calibration over all of them) and restored.
+
+    ``train``: quantization-aware training. The activation and the float
+    weight (a packed weight's ``to_float()``: prepacking is an inference
+    artifact) are fake-quantized with straight-through gradients and
+    multiplied in float, as the JAX package does; no bit-serial kernel
+    runs.
     """
     packed = isinstance(w, PackedWeight)
     if cfg is None or not cfg.enabled:
         wf = w.to_float() if packed else w
         y = x @ wf.to(x.dtype)
+    elif train:
+        xq = fake_quant(x, cfg.a_bits)
+        wq = fake_quant(w.to_float() if packed else w, cfg.w_bits)
+        y = xq @ wq.to(xq.dtype)
     else:
         y = quantized_matmul(x, w, a_bits=cfg.a_bits, w_bits=cfg.w_bits,
                              backend=cfg.backend).to(x.dtype)
@@ -127,15 +142,23 @@ def _nchw_conv(x: torch.Tensor, w: torch.Tensor, stride: int,
 
 def pim_conv2d(x: torch.Tensor, w, b: torch.Tensor | None = None,
                stride: int = 1, padding: int = 0,
-               cfg: PIMQuantConfig | None = None,
+               cfg: PIMQuantConfig | None = None, train: bool = False,
                conv_mode: str = "auto") -> torch.Tensor:
-    """NHWC convolution with an HWIO weight (float or prepacked)."""
+    """NHWC convolution with an HWIO weight (float or prepacked).
+
+    ``train``: quantization-aware training, the float patch matrix
+    (im2col) through ``pim_linear(train=True)``."""
     packed = isinstance(w, PackedConvWeight)
     kh, kw, c, o = w.kernel_shape if packed else w.shape
     if cfg is None or not cfg.enabled:
         wf = w.to_float() if packed else w
         y = _nchw_conv(x, wf.to(x.dtype), stride, padding)
         return y + b.to(y.dtype) if b is not None else y
+    if train:
+        wf = w.to_float() if packed else w
+        cols, oh, ow = _im2col(x, kh, kw, stride, padding)
+        y = pim_linear(cols, wf.reshape(kh * kw * c, o), b, cfg, train=True)
+        return y.reshape(x.shape[0], oh, ow, o)
     if conv_mode not in ("auto", "fused", "im2col"):
         raise ValueError(f"conv_mode {conv_mode!r}: want auto|fused|im2col")
 

@@ -50,13 +50,17 @@ class QuantParams:
                            self.qmin.reshape(-1, 1, 1), self.bits)
 
 
-def calibrate_minmax(x: torch.Tensor, bits: int,
+def calibrate_minmax(x: torch.Tensor, bits: int, axis=None,
                      per_expert: bool = False) -> QuantParams:
-    """Paper Eq. 2 calibration: per-tensor min/max. With ``per_expert``,
-    ``x`` is (E, ...) and each x[e] is calibrated on itself (the JAX
-    package's ``vmap`` of the per-tensor calibration): scale and qmin
-    (E,)."""
-    if per_expert:
+    """Paper Eq. 2 calibration: per-tensor min/max, or per ``axis`` (an int
+    or a tuple; scale and qmin keep the reduced dimensions, as the JAX
+    package's ``keepdims``). With ``per_expert``, ``x`` is (E, ...) and
+    each x[e] is calibrated on itself (the JAX package's ``vmap`` of the
+    per-tensor calibration): scale and qmin (E,)."""
+    if axis is not None:
+        qmin = x.amin(dim=axis, keepdim=True)
+        qmax = x.amax(dim=axis, keepdim=True)
+    elif per_expert:
         dims = tuple(range(1, x.dim()))
         qmin, qmax = x.amin(dim=dims), x.amax(dim=dims)
     else:
@@ -75,12 +79,48 @@ def calibrate_minmax(x: torch.Tensor, bits: int,
 
 def quantize(x: torch.Tensor, qp: QuantParams) -> torch.Tensor:
     """Eq. 2 forward: float -> unsigned integer codes in [0, 2^bits), int32."""
-    q = torch.round((x.to(torch.float32) - qp.qmin) / qp.scale)
-    return q.clamp(0.0, float(2**qp.bits - 1)).to(torch.int32)
+    # One temporary, rounded and clipped in place (a vocabulary head's
+    # codes are 10^8-10^9 elements); the same operations in the same order.
+    q = (x.to(torch.float32) - qp.qmin).div_(qp.scale).round_()
+    return q.clamp_(0.0, float(2**qp.bits - 1)).to(torch.int32)
 
 
 def dequantize(q: torch.Tensor, qp: QuantParams) -> torch.Tensor:
     return q.to(torch.float32) * qp.scale + qp.qmin
+
+
+class _STERound(torch.autograd.Function):
+    """round() in the forward, the identity in the backward (the
+    straight-through estimator, the JAX package's ``_ste_round``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return torch.round(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def fake_quant(x: torch.Tensor, bits: int, axis=None) -> torch.Tensor:
+    """Quantize-dequantize with a straight-through estimator, for
+    quantization-aware training of the PIM layers.
+
+    Calibration reads ``x.detach()``. The clip is ``minimum(maximum(q, 0),
+    2^bits - 1)``, whose gradient is halved where q sits exactly on a bound,
+    as ``jnp.clip``'s is; min/max calibration puts the smallest and largest
+    element there (``torch.clamp`` would pass the whole gradient). ``x`` is
+    taken to float32 before the shift, as JAX promotes a bf16 ``x`` against
+    the float32 ``qmin`` (torch would keep bf16), and the result is cast
+    back to ``x.dtype``.
+    """
+    qp = calibrate_minmax(x.detach(), bits, axis=axis)
+    q = _STERound.apply((x.to(torch.float32) - qp.qmin) / qp.scale)
+    lo = torch.zeros((), dtype=torch.float32, device=x.device)
+    hi = torch.full((), float(2**bits - 1), dtype=torch.float32,
+                    device=x.device)
+    q = torch.minimum(torch.maximum(q, lo), hi)
+    return (q * qp.scale + qp.qmin).to(x.dtype)
 
 
 def fold_batchnorm(gamma, beta, mean, var, eps=1e-5):

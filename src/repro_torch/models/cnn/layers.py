@@ -69,17 +69,18 @@ def init_fc(gen: torch.Generator, cin, cout):
 
 
 def conv_block(p, x, stride=1, padding=0, cfg: PIMQuantConfig | None = None,
-               relu=True):
+               relu=True, train=False):
     y = pim_conv2d(x, p["w"], p.get("b"), stride=stride, padding=padding,
-                   cfg=cfg)
+                   cfg=cfg, train=train)
     if "gamma" in p:
         scale, bias = fold_batchnorm(p["gamma"], p["beta"], p["mean"], p["var"])
         y = y * scale + bias
     return torch.relu(y) if relu else y
 
 
-def fc_block(p, x, cfg: PIMQuantConfig | None = None, relu=True):
-    y = pim_linear(x, p["w"], p["b"], cfg=cfg)
+def fc_block(p, x, cfg: PIMQuantConfig | None = None, relu=True,
+             train=False):
+    y = pim_linear(x, p["w"], p["b"], cfg=cfg, train=train)
     return torch.relu(y) if relu else y
 
 

@@ -35,26 +35,28 @@ def prepack(params, cfg):
     return L.prepack_params(params, cfg)
 
 
-def _bottleneck(p, x, stride, cfg):
-    y = L.conv_block(p["c1"], x, 1, 0, cfg=cfg)
-    y = L.conv_block(p["c2"], y, stride, 1, cfg=cfg)
-    y = L.conv_block(p["c3"], y, 1, 0, cfg=cfg, relu=False)
+def _bottleneck(p, x, stride, cfg, train=False):
+    y = L.conv_block(p["c1"], x, 1, 0, cfg=cfg, train=train)
+    y = L.conv_block(p["c2"], y, stride, 1, cfg=cfg, train=train)
+    y = L.conv_block(p["c3"], y, 1, 0, cfg=cfg, relu=False, train=train)
     if "proj" in p:
-        x = L.conv_block(p["proj"], x, stride, 0, cfg=cfg, relu=False)
+        x = L.conv_block(p["proj"], x, stride, 0, cfg=cfg, relu=False,
+                         train=train)
     return torch.relu(x + y)
 
 
-def apply(params, x, cfg=None):
+def apply(params, x, cfg=None, train=False):
     """NHWC images (N, H, W, 3) -> logits (N, num_classes)."""
-    x = L.conv_block(params["stem"], x, stride=2, padding=3, cfg=cfg)
+    x = L.conv_block(params["stem"], x, stride=2, padding=3, cfg=cfg,
+                     train=train)
     # The reference's stem pool is VALID (no padding), unlike torchvision's.
     x = L.max_pool(x, 3, 2)
     for s, (blocks, _mid) in enumerate(_STAGES):
         for b in range(blocks):
             x = _bottleneck(params[f"s{s}b{b}"], x,
-                            2 if (b == 0 and s > 0) else 1, cfg)
+                            2 if (b == 0 and s > 0) else 1, cfg, train)
     x = L.avg_pool_global(x)
-    return L.fc_block(params["head"], x, cfg=cfg, relu=False)
+    return L.fc_block(params["head"], x, cfg=cfg, relu=False, train=train)
 
 
 def layer_specs(batch=1, image=224, num_classes=1000):

@@ -33,17 +33,17 @@ def prepack(params, cfg):
     return L.prepack_params(params, cfg)
 
 
-def apply(params, x, cfg=None):
+def apply(params, x, cfg=None, train=False):
     """NHWC images (N, H, W, 3) -> logits (N, num_classes)."""
     for s, (_cout, reps) in enumerate(_STAGES):
         for i in range(reps):
             x = L.conv_block(params[f"conv{s + 1}_{i + 1}"], x, stride=1,
-                             padding=1, cfg=cfg)
+                             padding=1, cfg=cfg, train=train)
         x = L.max_pool(x, 2, 2)
     x = x.reshape(x.shape[0], -1)
     for j in range(len(_FCS)):
-        x = L.fc_block(params[f"fc{j + 1}"], x, cfg=cfg)
-    return L.fc_block(params["head"], x, cfg=cfg, relu=False)
+        x = L.fc_block(params[f"fc{j + 1}"], x, cfg=cfg, train=train)
+    return L.fc_block(params["head"], x, cfg=cfg, relu=False, train=train)
 
 
 def layer_specs(batch=1, image=224, num_classes=1000):

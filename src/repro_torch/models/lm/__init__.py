@@ -15,6 +15,7 @@ from .model import (
     init,
     init_state,
     layer_plan,
+    loss_fn,
     prefill,
     prefill_into_slot,
     prepack_params,
@@ -24,5 +25,6 @@ from .stubs import audio_frame_embeddings, image_patch_embeddings
 __all__ = [
     "ModelConfig", "MoEConfig", "audio_frame_embeddings", "cast_params",
     "decode_step", "forward", "image_patch_embeddings", "init", "init_state",
-    "layer_plan", "prefill", "prefill_into_slot", "prepack_params",
+    "layer_plan", "loss_fn", "prefill", "prefill_into_slot",
+    "prepack_params",
 ]

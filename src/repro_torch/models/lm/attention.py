@@ -186,7 +186,7 @@ def _cross_write(cache: dict, k, v, cache_index):
 
 def attention(p, cfg: ModelConfig, x: torch.Tensor, q_pos: torch.Tensor,
               kv_src=None, cache: dict | None = None, cache_index=None,
-              window: int = 0, ring: bool = False):
+              window: int = 0, ring: bool = False, train: bool = False):
     """One attention block. Returns (out (B, Sq, d), the cache | None).
 
     ``x`` (B, Sq, d); ``q_pos`` (B, Sq) int32; ``window`` > 0 limits each
@@ -208,11 +208,12 @@ def attention(p, cfg: ModelConfig, x: torch.Tensor, q_pos: torch.Tensor,
     kv_in = x if kv_src is None else kv_src
     skv = kv_in.shape[1]
 
-    q = pim_linear(x, p["wq"], p.get("bq"), cfg=pim).reshape(b, sq, hq, hd)
-    k = pim_linear(kv_in, p["wk"], p.get("bk"), cfg=pim).reshape(
-        b, skv, hkv, hd)
-    v = pim_linear(kv_in, p["wv"], p.get("bv"), cfg=pim).reshape(
-        b, skv, hkv, hd)
+    q = pim_linear(x, p["wq"], p.get("bq"), cfg=pim, train=train).reshape(
+        b, sq, hq, hd)
+    k = pim_linear(kv_in, p["wk"], p.get("bk"), cfg=pim,
+                   train=train).reshape(b, skv, hkv, hd)
+    v = pim_linear(kv_in, p["wv"], p.get("bv"), cfg=pim,
+                   train=train).reshape(b, skv, hkv, hd)
     if cfg.qk_norm:
         q = qk_head_norm(p["q_norm"], q, cfg.norm_eps)
         k = qk_head_norm(p["k_norm"], k, cfg.norm_eps)
@@ -244,7 +245,8 @@ def attention(p, cfg: ModelConfig, x: torch.Tensor, q_pos: torch.Tensor,
         mask = attention_mask(q_pos, q_pos, window=window)
     o = gqa_scores_softmax_v(q, k, v, mask, softcap=cfg.attn_softcap,
                              **scales)
-    out = pim_linear(o.reshape(b, sq, hq * hd), p["wo"], cfg=pim)
+    out = pim_linear(o.reshape(b, sq, hq * hd), p["wo"], cfg=pim,
+                     train=train)
     if "gate" in p:   # the zero-init cross-attention gate
         out = torch.tanh(p["gate"]).to(out.dtype) * out
     return out, cache

@@ -32,12 +32,13 @@ def init_mlp(cfg: ModelConfig, generator, device=None):
     return p
 
 
-def mlp(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def mlp(p, cfg: ModelConfig, x: torch.Tensor, train: bool = False
+        ) -> torch.Tensor:
     act = _ACTS[cfg.act.split("_")[0]]
-    h = pim_linear(x, p["w_in"], cfg=cfg.pim)
+    h = pim_linear(x, p["w_in"], cfg=cfg.pim, train=train)
     if "w_gate" in p:
-        g = pim_linear(x, p["w_gate"], cfg=cfg.pim)
+        g = pim_linear(x, p["w_gate"], cfg=cfg.pim, train=train)
         h = act(g) * h
     else:
         h = act(h)
-    return pim_linear(h, p["w_out"], cfg=cfg.pim)
+    return pim_linear(h, p["w_out"], cfg=cfg.pim, train=train)

@@ -8,6 +8,8 @@ reps takes the place of ``jax.lax.scan``.
 Entry points:
 
   ``forward(params, cfg, tokens)``             -> (logits, aux loss)
+  ``loss_fn(params, cfg, batch)``              -> scalar cross entropy
+                                                  (+ MoE aux)
   ``prefill(params, cfg, tokens, state)``      -> (last logits, state)
   ``decode_step(params, cfg, tokens, state)``  -> (logits, state)
                                                   (+ stats with
@@ -34,6 +36,7 @@ grok-1, phi3.5-moe).
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.packed import PackedWeight, prepack
 from repro_torch.core.pim_layers import pim_linear
@@ -117,16 +120,17 @@ def _zero_aux(device) -> dict:
 
 
 def apply_block(kind: str, p, cfg: ModelConfig, x, q_pos=None, state=None,
-                cache_index=None, image_embeds=None, aux=None):
-    """Pre-norm residual block. Returns (x, new_state).
+                cache_index=None, image_embeds=None, train=False):
+    """Pre-norm residual block. Returns (x, new_state, aux): ``aux`` is the
+    MoE FFN's aux dict (``_zero_aux``'s keys), or None without MoE.
 
     ``q_pos`` (B, S) int32 and ``cache_index`` (B,) are the positions an
     attention block needs (the recurrent blocks ignore them); a ``local_attn``
     block attends within ``cfg.local_window`` and keeps its ring buffer in
     ``state``; a ``cross_attn`` block attends to ``image_embeds`` and keeps
     their keys and values in ``state``. A cache comes back as ``state``
-    itself, written in place. An MoE FFN adds its aux values
-    (``_zero_aux``'s keys) into the ``aux`` dict where one is given.
+    itself, written in place. ``train`` runs the projections as
+    quantization-aware training where ``cfg.pim`` is set.
 
     A ``cross_attn`` block without ``image_embeds`` raises ``ValueError``:
     the JAX package then runs it as self-attention over its image cache."""
@@ -138,7 +142,8 @@ def apply_block(kind: str, p, cfg: ModelConfig, x, q_pos=None, state=None,
     h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
     if kind in _FFN_KINDS:
         if kind == "rglru":
-            y, new_inner = RG.rglru_block(p["rglru"], cfg, h, state)
+            y, new_inner = RG.rglru_block(p["rglru"], cfg, h, state,
+                                          train=train)
         else:
             local = kind == "local_attn"
             y, new_inner = A.attention(
@@ -146,23 +151,30 @@ def apply_block(kind: str, p, cfg: ModelConfig, x, q_pos=None, state=None,
                 kv_src=image_embeds if kind == "cross_attn" else None,
                 cache=state, cache_index=cache_index,
                 window=cfg.local_window if local else 0,
-                ring=local and state is not None)
+                ring=local and state is not None, train=train)
             if cfg.post_attn_norm:
                 y = apply_norm(cfg.norm, p["norm_post"], y, cfg.norm_eps)
         x = x + y
         h2 = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
         if not cfg.moe:
-            return x + MLP.mlp(p["ffn"], cfg, h2), new_inner
-        y2, a = MOE.moe_ffn(p["ffn"], cfg, h2)
-        if aux is not None:
-            for k, v in a.items():
-                aux[k] = aux[k] + v
-        return x + y2, new_inner
-    y, new_inner = RW.rwkv_time_mix(p["time_mix"], cfg, h, state)
+            return x + MLP.mlp(p["ffn"], cfg, h2, train=train), new_inner, None
+        y2, aux = MOE.moe_ffn(p["ffn"], cfg, h2, train=train)
+        return x + y2, new_inner, aux
+    y, new_inner = RW.rwkv_time_mix(p["time_mix"], cfg, h, state, train=train)
     x = x + y
     h2 = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
-    y2, new_inner = RW.rwkv_channel_mix(p["channel_mix"], cfg, h2, new_inner)
-    return x + y2, new_inner
+    y2, new_inner = RW.rwkv_channel_mix(p["channel_mix"], cfg, h2, new_inner,
+                                        train=train)
+    return x + y2, new_inner, None
+
+
+def _add_aux(total, aux):
+    """Aux dicts summed key by key (None is no MoE layer)."""
+    if aux is None:
+        return total
+    if total is None:
+        return dict(aux)
+    return {k: total[k] + v for k, v in aux.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -311,9 +323,21 @@ def prepack_params(params, cfg, faults=None):
 # Forward
 # ---------------------------------------------------------------------------
 
+def _reps(tree, reps: int) -> list:
+    """A stacked block tree as one tree per rep: a stacked tensor is
+    unbound once (one backward node that stacks the reps' gradients, where
+    indexing each rep would add a full-size gradient per rep), a list of
+    PackedWeight (one per rep) is indexed."""
+    if isinstance(tree, dict):
+        per_key = {k: _reps(v, reps) for k, v in tree.items()}
+        return [{k: v[r] for k, v in per_key.items()} for r in range(reps)]
+    if isinstance(tree, torch.Tensor):
+        return list(tree.unbind(0))
+    return [tree[r] for r in range(reps)]
+
+
 def _rep(tree, r: int):
-    """Rep ``r`` of a stacked block tree: tensors and lists of
-    PackedWeight (one per rep) are indexed alike."""
+    """Rep ``r`` of a stacked state tree."""
     if isinstance(tree, dict):
         return {k: _rep(v, r) for k, v in tree.items()}
     return tree[r]
@@ -328,29 +352,53 @@ def _write(dst: dict, src: dict):
 
 
 def _run_blocks(params, cfg: ModelConfig, x, q_pos, states=None,
-                cache_index=None, image_embeds=None):
+                cache_index=None, image_embeds=None, train=False):
     """Apply the full block schedule; ``states`` (prefill/decode) is
     updated in place. Returns (x, aux): the MoE aux values summed over the
-    layers (``_zero_aux``), or None for a model without MoE."""
+    layers (``_zero_aux``), or None for a model without MoE.
+
+    In training (``train`` and ``cfg.remat`` not ``"none"``) each rep of
+    the unit runs under ``torch.utils.checkpoint`` and is recomputed in
+    the backward ("block" and "full" alike: training keeps no decode cache
+    for "block" to save). The unit returns its aux sum, which is added
+    outside the checkpoint, so a recompute cannot count it twice."""
     unit, reps, rest = layer_plan(cfg)
-    aux = _zero_aux(x.device) if cfg.moe else None
+    aux = None
+
+    def unit_fn(x, p_list, s_list):
+        unit_aux = None
+        for j, kind in enumerate(unit):
+            s = s_list[j] if s_list is not None else None
+            x, ns, a = apply_block(kind, p_list[j], cfg, x, q_pos, s,
+                                   cache_index, image_embeds, train)
+            if s is not None:
+                _write(s, ns)
+            unit_aux = _add_aux(unit_aux, a)
+        return x, unit_aux
+
+    remat = train and cfg.remat != "none"
+    per_rep = [_reps(t, reps) for t in params["scan"]]
     # Under a read-disturb scope every rep reads at the scan body's sites,
     # as the reference's one traced scan body numbers them.
     mark = _faults.site_mark()
     for r in range(reps):
         _faults.site_rewind(mark)
-        for j, kind in enumerate(unit):
-            s = _rep(states["scan"][j], r) if states is not None else None
-            x, ns = apply_block(kind, _rep(params["scan"][j], r), cfg, x,
-                                q_pos, s, cache_index, image_embeds, aux)
-            if states is not None:
-                _write(s, ns)
+        p_list = [t[r] for t in per_rep]
+        s_list = ([_rep(t, r) for t in states["scan"]]
+                  if states is not None else None)
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(
+                unit_fn, x, p_list, s_list, use_reentrant=False)
+        else:
+            x, a = unit_fn(x, p_list, s_list)
+        aux = _add_aux(aux, a)
     for i, kind in enumerate(rest):
         s = states["rest"][i] if states is not None else None
-        x, ns = apply_block(kind, params["rest"][i], cfg, x, q_pos, s,
-                            cache_index, image_embeds, aux)
+        x, ns, a = apply_block(kind, params["rest"][i], cfg, x, q_pos, s,
+                               cache_index, image_embeds, train)
         if states is not None:
             _write(s, ns)
+        aux = _add_aux(aux, a)
     return x, aux
 
 
@@ -360,26 +408,79 @@ def embed_inputs(params, cfg: ModelConfig, tokens):
     return tokens.to(torch_dtype(cfg.dtype))  # precomputed frame embeds
 
 
-def lm_head(params, cfg: ModelConfig, x):
+def lm_head(params, cfg: ModelConfig, x, train=False):
+    """Logits (float32). ``train`` runs the head as quantization-aware
+    training where ``cfg.pim`` is set, like every projection. (The JAX
+    package's head takes no ``train``: under QAT it runs the inference
+    pipeline, whose rounding passes no gradient, so the backbone's
+    gradient would reach it only through the activations' min and max;
+    see ROADMAP.md, "Differences".)"""
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
-    logits = pim_linear(x, w, cfg=cfg.pim).to(torch.float32)
+    logits = pim_linear(x, w, cfg=cfg.pim, train=train).to(torch.float32)
     if cfg.logits_softcap:
         logits = torch.tanh(logits / cfg.logits_softcap) * cfg.logits_softcap
     return logits
 
 
-def forward(params, cfg: ModelConfig, tokens, image_embeds=None):
+def _seq_positions(x):
+    b, s = x.shape[:2]
+    return torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(
+        b, s)
+
+
+def forward(params, cfg: ModelConfig, tokens, image_embeds=None,
+            train=False):
     """Full-sequence forward. Returns (logits (B, S, V) float32, aux loss):
     the MoE balance + z loss summed over the layers, 0 without MoE."""
     x = embed_inputs(params, cfg, tokens)
-    b, s = x.shape[:2]
-    q_pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(
-        b, s)
-    x, aux = _run_blocks(params, cfg, x, q_pos, image_embeds=image_embeds)
+    x, aux = _run_blocks(params, cfg, x, _seq_positions(x),
+                         image_embeds=image_embeds, train=train)
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     loss = aux["loss"] if aux is not None else torch.zeros((),
                                                            device=x.device)
-    return lm_head(params, cfg, x), loss
+    return lm_head(params, cfg, x, train), loss
+
+
+def _xent(logits, labels):
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[..., None].long(),
+                                dim=-1)[..., 0]
+    return lse - gold
+
+
+def loss_fn(params, cfg: ModelConfig, batch, train=True):
+    """Mean next-token cross entropy (+ the MoE aux loss). ``batch``:
+    ``tokens`` and ``labels`` (B, S), and ``image_embeds`` for a model with
+    cross blocks.
+
+    ``cfg.loss_chunk`` > 0 (dividing S, and below it) evaluates the head
+    and the cross entropy a chunk of positions at a time, each chunk
+    recomputed in the backward, so the (B, S, V) logits are never held
+    whole."""
+    labels = batch["labels"]
+    x = embed_inputs(params, cfg, batch["tokens"])
+    b, s = x.shape[:2]
+    x, aux = _run_blocks(params, cfg, x, _seq_positions(x),
+                         image_embeds=batch.get("image_embeds"), train=train)
+    x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
+
+    chunk = cfg.loss_chunk
+    if chunk and s % chunk == 0 and s > chunk:
+        def chunk_loss(xi, li):
+            return _xent(lm_head(params, cfg, xi, train), li).sum()
+
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(0, s, chunk):
+            xi, li = x[:, i:i + chunk], labels[:, i:i + chunk]
+            total = total + (torch.utils.checkpoint.checkpoint(
+                chunk_loss, xi, li, use_reentrant=False)
+                if torch.is_grad_enabled() else chunk_loss(xi, li))
+        # A tensor divisor (a CUDA division by a Python number multiplies
+        # by its reciprocal).
+        loss = total / torch.full_like(total, float(b * s))
+    else:
+        loss = _xent(lm_head(params, cfg, x, train), labels).mean()
+    return loss + aux["loss"] if aux is not None else loss
 
 
 def _positions(state, b: int, s: int):
@@ -485,5 +586,5 @@ def prefill_into_slot(params, cfg: ModelConfig, tokens, state, slot: int,
 
 __all__ = ["apply_block", "cast_params", "decode_step",
            "embed_inputs", "forward", "init", "init_block", "init_state",
-           "layer_plan", "lm_head", "prefill", "prefill_into_slot",
-           "prepack_params", "to_device"]
+           "layer_plan", "lm_head", "loss_fn", "prefill",
+           "prefill_into_slot", "prepack_params", "to_device"]

@@ -192,8 +192,12 @@ def combine(yb: torch.Tensor, r: Routing, t: int) -> torch.Tensor:
     return yb.new_zeros((t, d)).index_add_(0, r.src_token, rows * w)
 
 
-def moe_ffn(p, cfg: ModelConfig, x: torch.Tensor):
-    """x (B, S, d) -> (out (B, S, d), aux dict) (``route``'s aux)."""
+def moe_ffn(p, cfg: ModelConfig, x: torch.Tensor, train: bool = False):
+    """x (B, S, d) -> (out (B, S, d), aux dict) (``route``'s aux).
+
+    ``train`` is taken for the reference's signature and changes nothing:
+    float expert banks contract in float (no fake quantization), as in the
+    JAX package, and only a prepacked bank runs Eq. 1."""
     b, s, d = x.shape
     x2 = x.reshape(b * s, d)
     r = route(p, cfg, x2)

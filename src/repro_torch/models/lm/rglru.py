@@ -145,12 +145,13 @@ def rglru_step(p, x: torch.Tensor, h_prev: torch.Tensor):
 
 
 def rglru_block(p, cfg: ModelConfig, x: torch.Tensor,
-                state: dict | None = None):
+                state: dict | None = None, train: bool = False):
     """Griffin recurrent block. x (B, S, d) -> (out (B, S, d), new state |
     None). The step path runs for a one-token call with a state (decode,
     and a one-token prefill chunk); every other call scans."""
-    gate = _ACTS["gelu"](pim_linear(x, p["w_gate"], cfg=cfg.pim))
-    h_in = pim_linear(x, p["w_x"], cfg=cfg.pim)
+    gate = _ACTS["gelu"](pim_linear(x, p["w_gate"], cfg=cfg.pim,
+                                    train=train))
+    h_in = pim_linear(x, p["w_x"], cfg=cfg.pim, train=train)
     conv_state = state["conv"] if state is not None else None
     h_in, new_conv = _causal_conv(p["conv"], h_in, conv_state)
     if state is not None and x.shape[1] == 1:
@@ -159,7 +160,7 @@ def rglru_block(p, cfg: ModelConfig, x: torch.Tensor,
     else:
         h0 = state["h"] if state is not None else None
         y, h_last = rglru_scan(p, h_in, h0)
-    out = pim_linear(y * gate, p["w_out"], cfg=cfg.pim)
+    out = pim_linear(y * gate, p["w_out"], cfg=cfg.pim, train=train)
     new_state = {"conv": new_conv, "h": h_last} if state is not None \
         else None
     return out, new_state

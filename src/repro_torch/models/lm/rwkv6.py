@@ -90,8 +90,19 @@ def _chunked_wkv(r, k, v, w, u, S0, L: int):
     heads are laid out as (B*H, S, D) for the kernel: at B = 1 a view, which
     the kernel reads through its strides and whose y it writes back in the
     (B, S, H, D) layout. Returns (y (B, S, H, D), S_final (B, H, D, D)).
+
+    Kernel 5 has no backward: on a CUDA tensor that needs a gradient this
+    raises ``NotImplementedError`` (it never falls back to the plain
+    version); on the CPU the plain version runs under autograd, so rwkv6
+    trains there.
     """
     b, s, h, d = r.shape
+    if r.is_cuda and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u, S0)):
+        raise NotImplementedError(
+            "rwkv6 training on a CUDA tensor: kernel 5 (wkv_chunked) has no "
+            "backward yet (ROADMAP.md Queue 1, item 10: its hand-written "
+            "backward in a torch.autograd.Function)")
     lw = torch.clamp_min(torch.log(torch.clamp_min(w, 1e-38)), _LOG_W_MIN)
 
     def rows(t):  # (B, S, H, D) -> (B*H, S, D)
@@ -123,7 +134,7 @@ def _group_norm(x, scale, eps):
 
 
 def rwkv_time_mix(p, cfg: ModelConfig, x: torch.Tensor,
-                  state: dict | None = None):
+                  state: dict | None = None, train: bool = False):
     """x (B, S, d) -> (y (B, S, d), new_state). float32 recurrence."""
     b, s, d = x.shape
     hd = cfg.rwkv_head_dim
@@ -133,10 +144,10 @@ def rwkv_time_mix(p, cfg: ModelConfig, x: torch.Tensor,
     mu = p["mu"].to(x.dtype)
     xr, xk, xv, xg, xw = (x + (xp - x) * mu[i] for i in range(5))
 
-    r = _heads(pim_linear(xr, p["w_r"], cfg=cfg.pim), heads, hd)
-    k = _heads(pim_linear(xk, p["w_k"], cfg=cfg.pim), heads, hd)
-    v = _heads(pim_linear(xv, p["w_v"], cfg=cfg.pim), heads, hd)
-    g = F.silu(pim_linear(xg, p["w_g"], cfg=cfg.pim))
+    r, k, v = (_heads(pim_linear(xi, p[name], cfg=cfg.pim, train=train),
+                      heads, hd)
+               for xi, name in ((xr, "w_r"), (xk, "w_k"), (xv, "w_v")))
+    g = F.silu(pim_linear(xg, p["w_g"], cfg=cfg.pim, train=train))
     # Data-dependent per-channel decay (the Finch contribution), clamped at
     # -5/step in both execution paths (see _chunked_wkv). JAX promotes the
     # bf16 LoRA factors to float32 against the float32 input.
@@ -165,7 +176,8 @@ def rwkv_time_mix(p, cfg: ModelConfig, x: torch.Tensor,
 
     y = _group_norm(y, p["ln_scale"], cfg.norm_eps) * g.to(f32).reshape(
         b, s, heads, hd)
-    out = pim_linear(y.reshape(b, s, d).to(x.dtype), p["w_o"], cfg=cfg.pim)
+    out = pim_linear(y.reshape(b, s, d).to(x.dtype), p["w_o"], cfg=cfg.pim,
+                     train=train)
     new_state = None
     if state is not None:
         new_state = dict(state, tm_shift=x[:, -1].to(f32), wkv=S_last)
@@ -173,16 +185,16 @@ def rwkv_time_mix(p, cfg: ModelConfig, x: torch.Tensor,
 
 
 def rwkv_channel_mix(p, cfg: ModelConfig, x: torch.Tensor,
-                     state: dict | None = None):
+                     state: dict | None = None, train: bool = False):
     prev_tok = state["cm_shift"] if state is not None else None
     xp = _token_shift(x, prev_tok)
     mu = p["mu"].to(x.dtype)
     xk = x + (xp - x) * mu[0]
     xr = x + (xp - x) * mu[1]
-    k = pim_linear(xk, p["w_k"], cfg=cfg.pim)
+    k = pim_linear(xk, p["w_k"], cfg=cfg.pim, train=train)
     k = torch.square(F.relu(k))
-    v = pim_linear(k, p["w_v"], cfg=cfg.pim)
-    r = torch.sigmoid(pim_linear(xr, p["w_r"], cfg=cfg.pim))
+    v = pim_linear(k, p["w_v"], cfg=cfg.pim, train=train)
+    r = torch.sigmoid(pim_linear(xr, p["w_r"], cfg=cfg.pim, train=train))
     out = r * v
     new_state = dict(state, cm_shift=x[:, -1].to(torch.float32)) \
         if state is not None else None

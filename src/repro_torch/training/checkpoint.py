@@ -196,7 +196,8 @@ def _from_host(arr: np.ndarray, dtype: str | None, like):
     dtype on the like-leaf's device, or a numpy array."""
     if not isinstance(like, torch.Tensor):
         return arr
-    t = torch.from_numpy(np.ascontiguousarray(arr))
+    # ascontiguousarray gives a 0-d array one dimension; keep its shape.
+    t = torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))
     if dtype == "bfloat16":
         t = t.view(torch.bfloat16)
     return t.to(like.device)

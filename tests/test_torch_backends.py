@@ -129,6 +129,32 @@ def test_prepacked_backend_equals_reference(backend, bits):
                                                "int-direct"))
 
 
+@pytest.mark.parametrize("case", ["uint8", "int32", "wrap", "leading",
+                                  "16-bit", "bank"])
+def test_int_direct_byte_route_equals_the_reference(case):
+    """On the CPU, byte codes of a 2-D weight take int-direct's int8 GEMM
+    (``_int_mm_bytes``): uint8 or int32 weight codes, all-255 codes at
+    K = 40,000 (P wraps mod 2^32), leading activation dims; 16-bit codes
+    and an expert bank (E, K, N) take the float64 product. Each equals the
+    reference's ``int_matmul_direct`` bit for bit (a bank, which the
+    reference contracts under ``vmap``, equals numpy's batched product)."""
+    shape_a, shape_w, bits = {
+        "uint8": ((3, 700), (700, 9), 8), "int32": ((3, 700), (700, 9), 8),
+        "wrap": ((2, 40000), (40000, 3), 8),
+        "leading": ((2, 3, 64), (64, 5), 8),
+        "16-bit": ((4, 64), (64, 8), 16), "bank": ((3, 4, 64), (3, 64, 5), 8),
+    }[case]
+    qa, qw = _codes(shape_a, bits, 7), _codes(shape_w, bits, 8)
+    if case == "wrap":
+        qa[:], qw[:] = 255, 255
+    tw = t(qw).to(torch.uint8) if case in ("uint8", "wrap", "bank") else t(qw)
+    assert tbs._byte_codes(t(qa), tw) == (case not in ("16-bit", "bank"))
+    want = (np.matmul(qa.astype(np.int64), qw.astype(np.int64)).astype(
+        np.int32) if case == "bank" else
+        jbs.int_matmul_direct(jnp.asarray(qa), jnp.asarray(qw)))
+    assert_bits_equal(tbs.int_matmul_direct(t(qa), tw), want)
+
+
 def test_backends_wrap_mod_2_32_like_the_reference():
     """At 16 bits the int32 product wraps; int-direct and mxu-plane (the
     backends that take more than 8 bits) wrap exactly as the reference."""

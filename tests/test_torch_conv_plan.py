@@ -132,11 +132,11 @@ def test_served_convs_are_the_models_convs(model, monkeypatch):
     seen = []
     conv_block = layers.conv_block
 
-    def spy(p, x, stride=1, padding=0, cfg=None, relu=True):
+    def spy(p, x, stride=1, padding=0, cfg=None, relu=True, train=False):
         kh, kw, c, o = p["w"].shape
         if kh * kw > 1:
             seen.append((x.shape[1], c, o, kh, stride, padding))
-        return conv_block(p, x, stride, padding, cfg, relu)
+        return conv_block(p, x, stride, padding, cfg, relu, train)
 
     monkeypatch.setattr(layers, "conv_block", spy)
     params = module.init(torch.Generator().manual_seed(0), num_classes=10,

@@ -727,3 +727,78 @@ def test_pim_lm_on_cuda_close_to_cpu(gen, monkeypatch):
         assert g.shape == c.shape
         rel = np.linalg.norm(g - c, axis=-1) / np.linalg.norm(c, axis=-1)
         assert rel.max() < 0.1
+
+
+# -- training -----------------------------------------------------------------
+
+@pytest.mark.parametrize("axis", [None, 0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fake_quant_and_its_ste_gradient_equal_cpu(gen, axis, dtype):
+    """fake_quant's forward and straight-through gradient on the card equal
+    the CPU's bit for bit (min/max, a true division by a device tensor,
+    round half to even, the halved gradient at the bounds)."""
+    from repro_torch.core.quantize import fake_quant
+
+    x = (torch.randn((300, 70), generator=gen, device="cuda") * 3).to(dtype)
+    g = torch.randn((300, 70), generator=gen, device="cuda").to(dtype)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        xi = x.detach().to(dev, copy=True).requires_grad_(True)
+        y = fake_quant(xi, 8, axis=axis)
+        y.backward(g.to(dev))
+        out[dev] = (y.detach().cpu(), xi.grad.cpu())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b)
+
+
+def test_adamw_step_on_cuda_matches_cpu(gen):
+    """One AdamW step of a reduced llama3.2-3b tree (bf16 params, float32
+    masters; clipped gradients) on the card and on the CPU: m, v and the
+    masters within rtol 1e-5 (the clip scale carries each device's order of
+    summing the squares; the card's pow and cos may sit an ulp off)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import model as M
+    from repro_torch.training import optimizer as O
+
+    cfg = get_config("llama3.2-3b").model.reduced(n_layers=2)
+    params = M.cast_params(M.init(cfg, torch.Generator().manual_seed(0),
+                                  device="cpu"), torch.bfloat16)
+    grads = M._map(lambda p: torch.randn(p.shape, generator=torch.Generator(
+        ).manual_seed(p.numel())).to(p.dtype), params)
+    ocfg = O.OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        p = M.to_device(params, dev)
+        _, state, m = O.apply_updates(ocfg, p, M.to_device(grads, dev),
+                                      O.init_opt_state(ocfg, p))
+        res[dev] = (state, m)
+    (sg, mg), (sc, mc) = res["cuda"], res["cpu"]
+    assert float(mg["grad_norm"]) > 1.0
+    np.testing.assert_allclose(float(mg["grad_norm"]), float(mc["grad_norm"]),
+                               rtol=1e-5)
+    for name in ("m", "v", "master"):
+        for a, b in zip(O.leaves(sg[name]), O.leaves(sc[name])):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                       rtol=1e-5, atol=1e-9)
+
+
+def test_rwkv_training_on_cuda_raises_until_kernel_5_has_a_backward(gen):
+    """Kernel 5 has no backward: rwkv6's chunked WKV on CUDA tensors that
+    need a gradient raises NotImplementedError naming its ROADMAP item, and
+    launches nothing (no fall back to the plain version); without a
+    gradient it runs kernel 5."""
+    from repro_torch.models.lm import rwkv6 as RW
+
+    b, s, h, d = 1, 32, 4, 32
+    r, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda")
+               for _ in range(3))
+    w = torch.rand((b, s, h, d), generator=gen, device="cuda") * 0.5 + 0.4
+    u = torch.randn((h, d), generator=gen, device="cuda")
+    s0 = torch.zeros((b, h, d, d), device="cuda")
+    ops.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="Queue 1, item 10"):
+        RW._chunked_wkv(r.requires_grad_(True), k, v, w, u, s0, 16)
+    assert ops.launch_counts()["wkv_chunked"] == 0
+    with torch.no_grad():
+        RW._chunked_wkv(r, k, v, w, u, s0, 16)
+    assert ops.launch_counts()["wkv_chunked"] == 1

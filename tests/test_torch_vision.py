@@ -351,7 +351,9 @@ def test_port_sources_import_no_jax_or_repro():
                 "models/lm/moe.py", "serving/gateway.py",
                 "configs/phi3_5_moe_42b.py", "configs/grok_1_314b.py",
                 "pim/faults.py", "training/fault_tolerance.py",
-                "training/checkpoint.py"):
+                "training/checkpoint.py", "training/optimizer.py",
+                "training/data.py", "training/train_loop.py",
+                "launch/train.py"):
         assert src / rel in sources, rel
     banned = ("jax", "jaxlib", "repro")
     for path in _port_sources():
