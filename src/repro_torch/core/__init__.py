@@ -5,9 +5,11 @@
   packed      — weights quantized and packed once (PackedWeight)
   bitserial   — Eq. 1 product on four backends + affine correction
   pim_layers  — pim_linear / pim_conv2d + PIMQuantConfig
+  mapping     — the paper's data-mapping scheme as subarray plans
 """
 from .bitserial import BACKENDS, int_matmul, int_matmul_prepacked, quantized_matmul
 from .bitslice import bitplanes, pack_bits, popcount, slice_and_pack, unpack_bits
+from .mapping import SubarrayPlan, plan_subarrays
 from .packed import PackedConvWeight, PackedWeight, prepack, prepack_conv
 from .pim_layers import (PIMQuantConfig, fuse_conv_heuristic, pim_conv2d,
                          pim_linear, prepack_conv2d, prepack_linear)
@@ -22,4 +24,5 @@ __all__ = [
     "PackedConvWeight", "PackedWeight", "prepack", "prepack_conv",
     "PIMQuantConfig", "fuse_conv_heuristic", "pim_conv2d", "pim_linear",
     "prepack_conv2d", "prepack_linear",
+    "SubarrayPlan", "plan_subarrays",
 ]

@@ -66,7 +66,12 @@ def calibrate_minmax(x: torch.Tensor, bits: int, axis=None,
     else:
         if x.dim() == 2 and not x.is_contiguous() and x.T.is_contiguous():
             x = x.T    # a transposed weight (a tied head), read in order
-        qmin, qmax = torch.aminmax(x)      # one pass over x
+        if x.requires_grad and torch.is_grad_enabled():
+            # Under autograd (the QAT head's calibration): aminmax has no
+            # derivative in every PyTorch release, amin and amax do.
+            qmin, qmax = x.amin(), x.amax()
+        else:
+            qmin, qmax = torch.aminmax(x)  # one pass over x
     # Guard the degenerate all-constant tensor; scale must stay positive.
     span = torch.clamp_min(qmax - qmin, torch.finfo(torch.float32).tiny)
     # A tensor divisor, not a Python number: CUDA PyTorch divides by a CPU

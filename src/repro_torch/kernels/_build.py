@@ -24,7 +24,7 @@ import time
 from pathlib import Path
 
 KERNELS = ("bitplane_pack", "bitserial_matmul", "conv2d_fused",
-           "wkv_chunked")
+           "wkv_chunked", "wkv_chunked_bwd")
 
 _HERE = Path(__file__).resolve().parent
 SRC_DIR = _HERE / "csrc"

@@ -12,7 +12,8 @@ activation codes are sliced and packed inside the matmul kernel.
 (``pack_planes``), the ``popcount`` backend's two launches.
 ``conv2d_bitserial`` is two: the channel pack of the padded activation
 codes, then the fused implicit-im2col conv. ``wkv_chunked`` is the chunked
-RWKV-6 WKV recurrence, one launch per prefill chunk of a layer.
+RWKV-6 WKV recurrence, one launch per prefill chunk of a layer, under
+autograd: its gradient is ``wkv_chunked_bwd``, one launch a backward.
 
 K is zero-padded to a whole word, and C to whole channel words, inside the
 kernels (lanes past the edge read the zero code), which is the zero padding
@@ -35,6 +36,7 @@ _KERNEL_MODULES = {
     "bitserial_matmul_fused_batched": (_bsm, "batched_launches"),
     "conv2d_bitserial_fused": (_conv, "launches"),
     "wkv_chunked": (_wkv, "launches"),
+    "wkv_chunked_bwd": (_wkv, "bwd_launches"),
 }
 
 
@@ -163,6 +165,15 @@ def wkv_chunked(r, k, v, lw, u, s0, *, chunk: int = 16):
     """Chunked RWKV-6 WKV -> (y (BH, S, D), s_final (BH, D, D)) float32.
 
     r, k, v, lw (BH, S, D) float32, ``lw`` the clamped log decay <= 0;
-    u (BH, D); s0 (BH, D, D); S a multiple of ``chunk``.
+    u (BH, D); s0 (BH, D, D); S a multiple of ``chunk``. Differentiable:
+    the backward launches :func:`wkv_chunked_bwd`'s kernel on the card.
     """
-    return _wkv.wkv_chunked(r, k, v, lw, u, s0, chunk)
+    return _wkv.WKVChunked.apply(r, k, v, lw, u, s0, chunk)
+
+
+def wkv_chunked_bwd(r, k, v, lw, u, s0, dy, ds_final=None, *,
+                    chunk: int = 16):
+    """The gradient of :func:`wkv_chunked` -> (dr, dk, dv, dlw (BH, S, D),
+    du (BH, D), ds0 (BH, D, D)) float32, given dy (BH, S, D) and
+    ``ds_final`` (BH, D, D; None is zero)."""
+    return _wkv.wkv_chunked_bwd(r, k, v, lw, u, s0, dy, ds_final, chunk)

@@ -11,8 +11,8 @@ training) is refused until mesh training is ported.
       --reduced --steps 200 --batch 8 --seq 256 [--device cpu]
 
 ``--pim`` trains every projection quantization-aware (``<8:8>`` fake
-quantization with straight-through gradients; the backend, "int-direct"
-as in the reference, is not read in training).
+quantization with straight-through gradients); the head runs the
+inference pipeline on the "int-direct" backend, as in the reference.
 """
 from __future__ import annotations
 

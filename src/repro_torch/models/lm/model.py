@@ -408,15 +408,14 @@ def embed_inputs(params, cfg: ModelConfig, tokens):
     return tokens.to(torch_dtype(cfg.dtype))  # precomputed frame embeds
 
 
-def lm_head(params, cfg: ModelConfig, x, train=False):
-    """Logits (float32). ``train`` runs the head as quantization-aware
-    training where ``cfg.pim`` is set, like every projection. (The JAX
-    package's head takes no ``train``: under QAT it runs the inference
-    pipeline, whose rounding passes no gradient, so the backbone's
-    gradient would reach it only through the activations' min and max;
-    see ROADMAP.md, "Differences".)"""
+def lm_head(params, cfg: ModelConfig, x):
+    """Logits (float32). Where ``cfg.pim`` is set the head runs
+    ``pim_linear``'s inference pipeline, also under quantization-aware
+    training, as the JAX package's head does: its rounding passes no
+    gradient, so the loss reaches the head's input and weight only through
+    their min and max (the calibration's scale and offset)."""
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
-    logits = pim_linear(x, w, cfg=cfg.pim, train=train).to(torch.float32)
+    logits = pim_linear(x, w, cfg=cfg.pim).to(torch.float32)
     if cfg.logits_softcap:
         logits = torch.tanh(logits / cfg.logits_softcap) * cfg.logits_softcap
     return logits
@@ -438,7 +437,7 @@ def forward(params, cfg: ModelConfig, tokens, image_embeds=None,
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     loss = aux["loss"] if aux is not None else torch.zeros((),
                                                            device=x.device)
-    return lm_head(params, cfg, x, train), loss
+    return lm_head(params, cfg, x), loss
 
 
 def _xent(logits, labels):
@@ -467,7 +466,7 @@ def loss_fn(params, cfg: ModelConfig, batch, train=True):
     chunk = cfg.loss_chunk
     if chunk and s % chunk == 0 and s > chunk:
         def chunk_loss(xi, li):
-            return _xent(lm_head(params, cfg, xi, train), li).sum()
+            return _xent(lm_head(params, cfg, xi), li).sum()
 
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(0, s, chunk):
@@ -479,7 +478,7 @@ def loss_fn(params, cfg: ModelConfig, batch, train=True):
         # by its reciprocal).
         loss = total / torch.full_like(total, float(b * s))
     else:
-        loss = _xent(lm_head(params, cfg, x, train), labels).mean()
+        loss = _xent(lm_head(params, cfg, x), labels).mean()
     return loss + aux["loss"] if aux is not None else loss
 
 

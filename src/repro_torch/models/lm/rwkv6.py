@@ -11,9 +11,10 @@ with the per-channel decay data-dependent, ``w_t = exp(-exp(w0 + tanh(x_w
 feeding each projection. The channel-mix half is the squared-ReLU gated FFN
 of the RWKV line.
 
-Prefill of a chunk whose length is a multiple of ``cfg.rwkv_chunk`` runs
-the chunked WKV, ``kernels.ops.wkv_chunked``: on a CUDA tensor the
-hand-written kernel, on a CPU tensor its plain version. Other lengths, and
+Prefill of a chunk whose length is a multiple of ``cfg.rwkv_chunk``, and
+training, run the chunked WKV, ``kernels.ops.wkv_chunked``: on a CUDA
+tensor the hand-written kernel (and its hand-written backward), on a CPU
+tensor the plain versions. Other lengths, and
 decode, run the rank-1 step token by token. The state is (H, D, D) per
 sequence, constant in sequence length.
 
@@ -91,18 +92,12 @@ def _chunked_wkv(r, k, v, w, u, S0, L: int):
     the kernel reads through its strides and whose y it writes back in the
     (B, S, H, D) layout. Returns (y (B, S, H, D), S_final (B, H, D, D)).
 
-    Kernel 5 has no backward: on a CUDA tensor that needs a gradient this
-    raises ``NotImplementedError`` (it never falls back to the plain
-    version); on the CPU the plain version runs under autograd, so rwkv6
-    trains there.
+    Differentiable: ``ops.wkv_chunked`` is a ``torch.autograd.Function``
+    whose backward launches the hand-written backward kernel on a CUDA
+    tensor and runs its plain version on the CPU. The log-decay clamp
+    stays outside it, in torch ops, whose autograd carries dlw back to w.
     """
     b, s, h, d = r.shape
-    if r.is_cuda and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (r, k, v, w, u, S0)):
-        raise NotImplementedError(
-            "rwkv6 training on a CUDA tensor: kernel 5 (wkv_chunked) has no "
-            "backward yet (ROADMAP.md Queue 1, item 10: its hand-written "
-            "backward in a torch.autograd.Function)")
     lw = torch.clamp_min(torch.log(torch.clamp_min(w, 1e-38)), _LOG_W_MIN)
 
     def rows(t):  # (B, S, H, D) -> (B*H, S, D)

@@ -406,12 +406,13 @@ class ServeEngine:
             # request.
             self._release_cancelled()
         if self.watchdog is None and self.fault_injector is None:
-            return self._step_once(count=True)
+            return self._step_once()
         return self._step_supervised()
 
-    def _step_once(self, count: bool = False) -> list:
-        """One unsupervised dispatch. ``count``: count a decode dispatch in
-        ``health`` (the supervised path counts each successful step)."""
+    def _step_once(self) -> list:
+        """One dispatch. ``health["dispatches"]`` is counted by the
+        supervised path alone, each successful step once, as the JAX
+        engine counts it."""
         self._admit()
         live = [i for i, r in enumerate(self.slot_req) if r is not None]
         if not live:
@@ -423,8 +424,6 @@ class ServeEngine:
                              int(max(self.slot_remaining[i] for i in live))))
             n = 1 << (cap.bit_length() - 1)
         toks, dones = self._decode_n(n)
-        if count:
-            self.health["dispatches"] += 1
         for k in range(n):
             for i in list(live):
                 req = self.slot_req[i]

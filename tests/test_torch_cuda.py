@@ -475,7 +475,8 @@ def test_cuda_layers_launch_kernels_and_no_library_product(gen, monkeypatch):
                                    "bitserial_matmul_packed": 0,
                                    "bitserial_matmul_fused_batched": 0,
                                    "conv2d_bitserial_fused": 1,
-                                   "wkv_chunked": 0}
+                                   "wkv_chunked": 0,
+                                   "wkv_chunked_bwd": 0}
     np.testing.assert_array_equal(got_conv.cpu().numpy(), want_conv.numpy())
     np.testing.assert_allclose(got_fc.cpu().numpy(), want_fc.numpy(),
                                rtol=1e-6, atol=1e-6)
@@ -506,7 +507,8 @@ def test_cuda_backends_equal_and_popcount_launches_kernel_4(gen, monkeypatch,
                                    "bitserial_matmul_packed": 1,
                                    "bitserial_matmul_fused_batched": 0,
                                    "conv2d_bitserial_fused": 0,
-                                   "wkv_chunked": 0}
+                                   "wkv_chunked": 0,
+                                   "wkv_chunked_bwd": 0}
     assert torch.equal(got, want)
 
 
@@ -782,23 +784,118 @@ def test_adamw_step_on_cuda_matches_cpu(gen):
                                        rtol=1e-5, atol=1e-9)
 
 
-def test_rwkv_training_on_cuda_raises_until_kernel_5_has_a_backward(gen):
-    """Kernel 5 has no backward: rwkv6's chunked WKV on CUDA tensors that
-    need a gradient raises NotImplementedError naming its ROADMAP item, and
-    launches nothing (no fall back to the plain version); without a
-    gradient it runs kernel 5."""
-    from repro_torch.models.lm import rwkv6 as RW
+def _wkv_bwd_args(gen, bh, s, d, view=False):
+    """Kernel 5's inputs with dy and dS_final; ``view``: r, k, v, lw and dy
+    as (H, S, D) views of (1, S, H, D) tensors."""
+    def rows():
+        if not view:
+            return torch.randn((bh, s, d), generator=gen, device="cuda")
+        return torch.randn((1, s, bh, d), generator=gen,
+                           device="cuda").permute(0, 2, 1, 3).reshape(bh, s, d)
+    r, k, v = (rows() * 0.5 for _ in range(3))
+    lw = torch.clamp_min(-torch.exp(rows() - 2), -5.0)
+    u = torch.randn((bh, d), generator=gen, device="cuda") * 0.2
+    s0 = torch.randn((bh, d, d), generator=gen, device="cuda") * 0.1
+    dsf = torch.randn((bh, d, d), generator=gen, device="cuda")
+    return r, k, v, lw, u, s0, rows(), dsf
 
-    b, s, h, d = 1, 32, 4, 32
-    r, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda")
-               for _ in range(3))
-    w = torch.rand((b, s, h, d), generator=gen, device="cuda") * 0.5 + 0.4
-    u = torch.randn((h, d), generator=gen, device="cuda")
-    s0 = torch.zeros((b, h, d, d), device="cuda")
-    ops.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="Queue 1, item 10"):
-        RW._chunked_wkv(r.requires_grad_(True), k, v, w, u, s0, 16)
-    assert ops.launch_counts()["wkv_chunked"] == 0
-    with torch.no_grad():
-        RW._chunked_wkv(r, k, v, w, u, s0, 16)
-    assert ops.launch_counts()["wkv_chunked"] == 1
+
+def _rel_l2(a, b):
+    return float((a - b).norm() / (b.norm() + 1e-30))
+
+
+@pytest.mark.parametrize("bh,s,d,chunk", [
+    (2, 32, 8, 8), (3, 64, 16, 32), (1, 48, 32, 16), (2, 64, 64, 32),
+    (40, 256, 64, 16),            # a prefill of rwkv6-3b's 40 heads
+    (640, 256, 64, 16)])          # its training step: 16 x 40 heads
+def test_wkv_bwd_kernel_equals_plain(gen, bh, s, d, chunk):
+    """The backward kernel against its plain version on the same inputs:
+    every output (dr, dk, dv, dlw, du, ds0) within 1e-4 relative L2, one
+    launch; a missing dS_final is zero."""
+    a = _wkv_bwd_args(gen, bh, s, d)
+    before = kw.bwd_launches
+    got = kw.wkv_chunked_bwd(*a, chunk=chunk)
+    assert kw.bwd_launches == before + 1
+    want = kw.wkv_chunked_bwd_plain(*a, chunk)
+    for name, g, w in zip(("dr", "dk", "dv", "dlw", "du", "ds0"), got, want):
+        assert torch.isfinite(g).all(), name
+        assert _rel_l2(g, w) < 1e-4, (name, _rel_l2(g, w))
+    got = kw.wkv_chunked_bwd(*a[:7], None, chunk=chunk)
+    want = kw.wkv_chunked_bwd_plain(*a[:7], None, chunk)
+    for g, w in zip(got, want):
+        assert _rel_l2(g, w) < 1e-4
+
+
+def test_wkv_bwd_kernel_reads_strided_views(gen):
+    """The batch-1 layout: r, k, v, lw and dy as (H, S, D) views of
+    (1, S, H, D) tensors are read in place and dr, dk, dv, dlw written in
+    that layout, equal to the plain version."""
+    h, s, d = 40, 256, 64
+    a = _wkv_bwd_args(gen, h, s, d, view=True)
+    assert a[0].stride() == (d, h * d, 1)
+    got = kw.wkv_chunked_bwd(*a, chunk=16)
+    want = kw.wkv_chunked_bwd_plain(*a, 16)
+    for g in got[:4]:
+        assert g.stride() == a[0].stride()
+    for g, w in zip(got, want):
+        assert _rel_l2(g, w) < 1e-4
+
+
+def test_wkv_bwd_kernel_rejects_what_it_does_not_take(gen):
+    a = _wkv_bwd_args(gen, 2, 40, 16)
+    with pytest.raises(ValueError, match="multiple"):
+        kw.wkv_chunked_bwd(*a, chunk=16)
+    a = _wkv_bwd_args(gen, 2, 32, 16)
+    with pytest.raises(ValueError, match="dy"):
+        kw.wkv_chunked_bwd(*a[:6], a[6][:, :16], a[7], chunk=16)
+    with pytest.raises(ValueError, match="float32"):    # float64: CPU only
+        kw.wkv_chunked_bwd(*(x.double() for x in a), chunk=16)
+    lib = kw._bwd_library()
+    assert lib.repro_wkv_chunked_bwd(*([None] * 15), 0, 0, 2, 32, 48, 16,
+                                     None) != 0
+    for d in kw.HEAD_DIMS:
+        for chunk in kw.CHUNKS:
+            assert lib.repro_wkv_chunked_bwd_smem(d, chunk) <= kw.SMEM_LIMIT
+
+
+def test_rwkv_training_on_cuda_raises_until_kernel_5_has_a_backward(gen):
+    """Kernel 5 has its backward: a train step of the reduced rwkv6-3b
+    (float32, ``remat="block"``) on the card raises nothing, launches
+    kernel 5 twice a layer (the forward and its recompute) and the backward
+    kernel once a layer, never the plain versions, and equals the CPU's
+    step from the same weights: the loss within rtol 1e-4, every gradient
+    leaf within 1e-3 relative L2."""
+    import dataclasses
+
+    from repro_torch.models.lm import model as M
+    from repro_torch.training import (OptimizerConfig, init_opt_state,
+                                      make_train_step)
+    from repro_torch.training.optimizer import leaves
+
+    cfg = dataclasses.replace(_reduced_rwkv(), n_layers=2, remat="block")
+    params = M.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (2, 65)).astype(np.int64)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=10,
+                           keep_master=False)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        kept = {}
+
+        def keep(grads):
+            kept["g"] = grads
+            return grads
+
+        p = M._map(lambda x: x.to(dev, copy=True), params)  # stepped in place
+        ops.reset_launch_counts()
+        _, _, m = make_train_step(cfg, ocfg, compress_grads=keep)(
+            p, init_opt_state(ocfg, p), batch)
+        out[dev] = (float(m["loss"]), kept["g"], ops.launch_counts())
+    (lg, gg, counts), (lc, gc, cpu_counts) = out["cuda"], out["cpu"]
+    assert counts["wkv_chunked"] == 2 * cfg.n_layers
+    assert counts["wkv_chunked_bwd"] == cfg.n_layers
+    assert not any(cpu_counts.values())
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    for a, b in zip(leaves(gg), leaves(gc)):
+        assert _rel_l2(a.cpu(), b) < 1e-3

@@ -177,27 +177,31 @@ def test_cancel_slot_reuse(models):
 
 def test_stats_and_close_have_the_jax_engines_keys(models):
     """``stats()`` has the JAX engine's keys (a dense model has no ring
-    channels); dispatches are counted; ``close()`` drops the device
-    tensors and refuses further work."""
+    channels) and, after the same unsupervised run on both engines, the
+    JAX engine's ``health`` (``dispatches`` is counted on the supervised
+    path alone, so an unsupervised run leaves it at the reference's
+    count); ``close()`` drops the device tensors and refuses further
+    work."""
     d = models["qwen3-0.6b"]
-    jeng = JServeEngine(d["jc"], d["jp"], max_batch=2, max_len=MAX_LEN)
-    want = jeng.stats()
-    jeng.close()
+    jeng = JServeEngine(d["jc"], d["jp"], max_batch=2, max_len=MAX_LEN,
+                        sampler=JSamplerConfig(temperature=0.0))
     eng = _engine(d["tc"], d["tp"])
     assert eng.stats() == {"health": {"dispatches": 0, "rollbacks": 0,
                                       "stragglers": 0, "snapshots": 0,
                                       "degraded": False}}
-    assert eng.stats().keys() == want.keys()
-    assert eng.stats()["health"].keys() == want["health"].keys()
+    assert eng.stats() == jeng.stats()
     for rid in range(2):
-        eng.submit(Request(rid=rid, prompt=models["prompts"][rid],
-                           max_new_tokens=12))
-    eng.run(strict=True)
-    # 11 decode steps after the first token: dispatches of 8, 2 and 1.
-    assert eng.stats()["health"]["dispatches"] == 3
+        for e, req in ((eng, Request), (jeng, JRequest)):
+            e.submit(req(rid=rid, prompt=models["prompts"][rid],
+                         max_new_tokens=12))
+    jdone = {c.rid: c.tokens for c in jeng.run()}
+    done = {c.rid: c.tokens for c in eng.run(strict=True)}
+    assert done == jdone
+    want = jeng.stats()
+    jeng.close()
+    assert eng.stats() == want
     eng.close()
     assert eng.params is None and eng.state is None
-    assert eng.stats()["health"]["dispatches"] == 3
     with pytest.raises(RuntimeError, match="close"):
         eng.submit(Request(rid=9, prompt=models["prompts"][0]))
 

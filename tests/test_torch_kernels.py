@@ -171,7 +171,8 @@ def test_plain_versions_do_not_count_launches():
                                     "bitserial_matmul_packed": 0,
                                     "bitserial_matmul_fused_batched": 0,
                                     "conv2d_bitserial_fused": 0,
-                                    "wkv_chunked": 0}
+                                    "wkv_chunked": 0,
+                                    "wkv_chunked_bwd": 0}
 
 
 def test_wrappers_reject_bad_operands_and_other_devices():

@@ -336,8 +336,9 @@ def _port_sources():
 def test_port_sources_import_no_jax_or_repro():
     """No import statement anywhere in the port (lazy ones included), in
     its examples (examples/torch_*.py) or in chip_smoke.py names jax,
-    jaxlib or repro; the scan covers the LM stack, the serving engine and
-    kernel 5's wrapper."""
+    jaxlib or repro; the scan covers the LM stack, the serving engine,
+    kernel 5's wrapper (and its backward's) and the paper's comparison
+    models."""
     sources = _port_sources()
     assert len(sources) >= 48
     src = _REPO / "src" / "repro_torch"
@@ -353,7 +354,8 @@ def test_port_sources_import_no_jax_or_repro():
                 "pim/faults.py", "training/fault_tolerance.py",
                 "training/checkpoint.py", "training/optimizer.py",
                 "training/data.py", "training/train_loop.py",
-                "launch/train.py"):
+                "launch/train.py", "pim/area.py", "pim/baselines.py",
+                "core/mapping.py"):
         assert src / rel in sources, rel
     banned = ("jax", "jaxlib", "repro")
     for path in _port_sources():
